@@ -1,0 +1,133 @@
+"""Kernels K1 and K3 on a CUDA card against their plain versions, at the
+edge shapes the main path can hand them: partial query tiles (batch not a
+multiple of 64 or 16), ragged row blocks, int8 embeddings, the dense half
+off, a two-block tech query structure; and the whole packed dispatch on
+the card against the same index on the CPU.
+
+Needs a card, so every test here carries the ``cuda`` marker and skips
+without one. The machine with the card has no jax, which tests/conftest.py
+imports, so run them there with:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cadence_rag_tpu_torch.ops import fused_scan as k1
+from cadence_rag_tpu_torch.ops import tech_keys as k3
+
+pytestmark = pytest.mark.cuda
+
+INT32_MIN = -2147483648
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _k1_inputs(rng, n, dim, d, b, emb_dtype):
+    """Values on a coarse grid: every product and partial sum is exact in
+    f32, so kernel and plain version must agree bit for bit."""
+    if emb_dtype == torch.int8:
+        emb = torch.from_numpy(rng.integers(-127, 128, size=(n, dim)).astype(np.int8))
+    else:
+        emb = torch.from_numpy(
+            rng.integers(-64, 65, size=(n, dim)).astype(np.float32) / 64.0
+        ).to(torch.bfloat16)
+    q_emb = torch.from_numpy(rng.integers(-64, 65, size=(b, dim)).astype(np.float32) / 64.0)
+    lex = torch.from_numpy(rng.integers(-4, 5, size=(n, d)).astype(np.int8))
+    q_lex = torch.from_numpy(rng.integers(-8, 9, size=(b, d)).astype(np.float32) / 16.0)
+    mask = torch.from_numpy(rng.random((b, n)) < 0.8)
+    has_emb = torch.from_numpy(rng.random(n) < 0.9)
+    return q_emb, q_lex, emb, lex, mask, has_emb
+
+
+@pytest.mark.parametrize("n,b,emb_dtype,dense", [
+    (8, 3, torch.bfloat16, True),
+    (100, 1, torch.int8, True),
+    (1024, 64, torch.bfloat16, False),
+    (2348, 5, torch.int8, True),
+    (5000, 128, torch.bfloat16, True),
+    (9000, 70, torch.bfloat16, True),
+])
+def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
+    rng = np.random.default_rng(n + b)
+    args = _k1_inputs(rng, n, 64, 128, b, emb_dtype)
+    want = k1.fused_scan_plain(*args, dense=dense)
+    before = k1.fused_scan.launches
+    got = k1.fused_scan(*(a.to(cuda) for a in args), dense=dense)
+    torch.cuda.synchronize()
+    assert k1.fused_scan.launches == before + 1
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == (b, k1.n_candidates(n))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,b,slots,capacity", [
+    (8, 1, 16, 1), (1000, 17, 16, 1), (4096, 128, 16, 2), (3333, 9, 8, 4),
+])
+def test_k3_kernel_matches_plain(cuda, n, b, slots, capacity):
+    rng = np.random.default_rng(n)
+    tech = rng.integers(1, 30, size=(n, slots)).astype(np.int32)
+    tech[rng.random((n, slots)) < 0.3] = 0
+    started = np.repeat(rng.integers(1_600_000_000, 1_700_000_000, n // 10 + 1),
+                        10)[:n].astype(np.int32)
+    started[rng.random(n) < 0.05] = INT32_MIN
+    q = rng.integers(0, 30, size=(b, slots * capacity)).astype(np.int32)
+    mask = (rng.random((b, n)) < 0.9) & (started != INT32_MIN)[None, :]
+    args = [torch.from_numpy(x) for x in (q, tech, started, mask)]
+    want = k3.tech_keys_plain(*args)
+    got = k3.tech_keys(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_packed_dispatch_card_matches_cpu(cuda, monkeypatch):
+    """The same corpus (carried by state_arrays/load_state) and the same
+    packed batch on the card and on the CPU."""
+    from cadence_rag_tpu.config import settings
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+
+    import chip_smoke
+
+    monkeypatch.setattr(settings, "embeddings_dim", 64)
+    monkeypatch.setattr(settings, "lexical_dim", 256)
+    monkeypatch.setattr(settings, "index_initial_capacity", 256)
+    cpu_index, texts, tokens = chip_smoke.build_index(
+        "cpu", n_chunks=6000, n_artifacts=700, n_known=4)
+    card_index = DeviceIndexManager(cuda)
+    card_index.ensure_call_capacity(cpu_index.call_capacity)
+    for name in ("chunks", "artifact_chunks"):
+        card_index.corpus(name).load_state(cpu_index.corpus(name).state_arrays())
+    for scoped in (False, True):
+        args, modes, expected = chip_smoke.plan_batch(
+            cpu_index, texts, tokens, 8, scoped)
+        for fuse in (False, True):
+            outs = []
+            for index in (cpu_index, card_index):
+                disp = index.query_both_packed_async(
+                    *args, chunk_ks=chip_smoke.CHUNK_KS,
+                    artifact_ks=chip_smoke.ARTIFACT_KS, chunk_mode=modes[0],
+                    artifact_mode=modes[1], recall_target=0.95, fuse_rrf=fuse)
+                outs.append(index.collect_packed(disp))
+            for cpu_c, card_c in zip(*outs):
+                assert cpu_c.keys() == card_c.keys()
+                for lane in cpu_c:
+                    for a, c in zip(cpu_c[lane], card_c[lane]):
+                        # f32 sums in another order: ids may swap only at
+                        # near-ties, which the score tolerance bounds
+                        if a.dtype.kind == "f":
+                            np.testing.assert_allclose(c, a, rtol=1e-5, atol=1e-5)
+                        else:
+                            assert (c == a).mean() > 0.99
+            if fuse:
+                chip_smoke.check_first(outs[1], expected, "card")

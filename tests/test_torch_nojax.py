@@ -1,0 +1,85 @@
+"""The port imports and serves with jax, pydantic, aiohttp and httpx
+unavailable — the software the machine with the card has.
+
+This runs in a subprocess: tests/conftest.py imports jax in this process.
+The subprocess imports every port module, then drives chip_smoke.py's main
+path (synthetic corpora, known rows, planned queries, both packed
+dispatches) on the CPU at a tiny size.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+for name in ("jax", "jaxlib", "pydantic", "aiohttp", "httpx"):
+    sys.modules[name] = None
+
+import cadence_rag_tpu_torch
+modules = []
+for info in pkgutil.walk_packages(cadence_rag_tpu_torch.__path__,
+                                  "cadence_rag_tpu_torch."):
+    importlib.import_module(info.name)
+    modules.append(info.name)
+
+from cadence_rag_tpu.config import settings
+settings.embeddings_dim = 64
+settings.lexical_dim = 512
+settings.index_initial_capacity = 256
+
+import chip_smoke
+index, batches, summary = chip_smoke.run_main_path(
+    "cpu", n_chunks=5000, n_artifacts=600, batch=8, n_known=4)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "aiohttp",
+                                       "httpx") and sys.modules[m] is not None)
+print(json.dumps({"modules": modules, "loaded": loaded,
+                  "modes": [summary[n]["modes"] for n in ("unscoped", "scoped")],
+                  "capacity": index.chunks.capacity}))
+"""
+
+
+def test_port_runs_without_jax_pydantic_http():
+    env = dict(os.environ)
+    env.pop("CADENCE_FORCE_PLATFORM", None)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    expected = {
+        "cadence_rag_tpu_torch.device",
+        "cadence_rag_tpu_torch.kernels.build",
+        "cadence_rag_tpu_torch.ops.fused_scan",
+        "cadence_rag_tpu_torch.ops.tech_keys",
+        "cadence_rag_tpu_torch.ops.pack",
+        "cadence_rag_tpu_torch.core.index",
+        "cadence_rag_tpu_torch.engine.planner",
+        "cadence_rag_tpu_torch.evals.synth",
+    }
+    assert expected <= set(out["modules"])
+    # unscoped chunks plan ann, the scoped batch plans exact
+    assert out["modes"] == [["ann", "ann"], ["exact", "exact"]]
+    assert out["capacity"] == 8192
+
+
+def test_cuda_request_without_card_raises():
+    """Asking for CUDA where there is none is an error, never the CPU."""
+    import pytest
+    import torch
+
+    from cadence_rag_tpu_torch.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
