@@ -12,8 +12,11 @@ rows into the existing buffers; growth reallocates at double capacity and
 copies), and the device program runs eagerly on PyTorch's current stream.
 Enqueued reads of a buffer are ordered before any later in-place write on
 that stream, so the corpus locks only need to cover capturing the tensors
-and enqueuing the program. Not ported here: the cold tier, IVF, growth
-prewarm/migration, deletes/compaction and the multi-host op-log.
+and enqueuing the program. The chunks corpus may carry an IVF index
+(``build_ivf``, single process): the planner's "ivf" mode serves the dense
+lane from it in a dispatch of its own, beside the packed program. Not
+ported here: the cold tier, growth prewarm/migration, deletes/compaction,
+the multi-host op-log and the gang IVF build.
 
 Entry points the serving engine calls: ``DeviceIndexManager.
 query_both_packed_async`` (one packed H2D buffer, one device program, a
@@ -24,6 +27,7 @@ positions to doc ids).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -37,6 +41,8 @@ from cadence_rag_tpu.utils import events
 
 from ..device import DeviceLike, resolve_device
 from ..ops.fused import _lanes_one_corpus, dual_corpus_retrieve
+from ..ops.ivf import build_buckets, ivf_topk, kmeans
+from ..ops.masks import filter_mask
 from ..ops.pack import (
     dual_corpus_retrieve_packed,
     pack_queries,
@@ -75,6 +81,23 @@ def _from_host(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a host array that references no corpus buffer. On CUDA it goes
+    through pinned memory, so it does not wait for work already on the
+    stream (an earlier batch's program)."""
+    t = _from_host(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Enqueue a non-blocking D2H copy into pinned memory."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 @dataclasses.dataclass
 class DocRow:
     doc_id: int
@@ -85,6 +108,28 @@ class DocRow:
     lex_touched: np.ndarray        # (t,) int32 buckets, for df updates
     tech: np.ndarray               # (tech_slots,) int32
     embedding: Optional[np.ndarray]  # (dim,) f32 unit vector or None
+
+
+@dataclasses.dataclass
+class IvfState:
+    """Probed-cluster dense index (ops/ivf.py) over the rows present at
+    build time; rows inserted later live in the exact-scanned overflow tail
+    until the next build (no row is ever invisible)."""
+
+    centroids: torch.Tensor     # (C, dim) f32
+    buckets: torch.Tensor       # (C, cap) int32
+    overflow: torch.Tensor      # (Vcap,) int32, -1 padded
+    overflow_count: int
+    built_count: int
+    n_clusters: int
+    nprobe: int
+
+
+def _padded_overflow(positions: np.ndarray) -> np.ndarray:
+    """The overflow tail padded with -1 to a power of two >= 8."""
+    padded = np.full(_next_pow2(max(len(positions), 8)), -1, dtype=np.int32)
+    padded[: len(positions)] = positions
+    return padded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +192,13 @@ class CorpusIndex:
         self._id_to_pos: Dict[int, int] = {}
         self.emb_rows = 0
         self.tombstones = 0
+        # optional probed-cluster dense index (settings.dense_ivf_enabled)
+        self.ivf: Optional[IvfState] = None
+        self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
+        self._ivf_rebuilding = False
+        # bumped whenever row positions are renumbered (load_state): an IVF
+        # build that started before must not install its stale buckets
+        self._pos_gen = 0
 
     def _alloc_arrays(self, cap: int) -> Tuple[torch.Tensor, ...]:
         dev = self.device
@@ -193,7 +245,9 @@ class CorpusIndex:
             t = _from_host(rows.astype(np.float32, copy=False)).to(torch.bfloat16)
         return t.to(self.device)
 
-    def _put(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    def _put(self, arr, dtype: torch.dtype) -> torch.Tensor:
+        if isinstance(arr, torch.Tensor):
+            return arr.to(device=self.device, dtype=dtype)
         return _from_host(arr).to(device=self.device, dtype=dtype)
 
     # -- growth ---------------------------------------------------------
@@ -230,6 +284,7 @@ class CorpusIndex:
             with events.timed("index.insert", corpus=self.name,
                               rows=len(rows)):
                 self._insert_locked(rows)
+        self._maybe_schedule_ivf_rebuild()
 
     def _insert_locked(self, rows: Sequence[DocRow]) -> None:
         # a row already present (same doc_id) is a no-op: a syncer and a
@@ -268,6 +323,8 @@ class CorpusIndex:
             self.dl_sum += r.lex_dl
         self.emb_rows += int(has.sum())
         self.count += n
+        if self.ivf is not None:
+            self._ivf_append_overflow(np.arange(start, start + n, dtype=np.int32))
 
     # -- planning ---------------------------------------------------------
     def estimate_candidates(
@@ -346,6 +403,158 @@ class CorpusIndex:
             self.emb_rows = int(arrays["has_emb"].astype(bool).sum())
             self.tombstones = int((started == INT32_MIN).sum())
             self.count = n
+            # row positions changed: derived IVF state is invalid
+            self.ivf = None
+            self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
+            self._pos_gen += 1
+
+    # -- IVF dense index ----------------------------------------------------
+    def _ivf_append_overflow(self, positions: np.ndarray) -> None:
+        self._ivf_overflow_host = np.concatenate(
+            [self._ivf_overflow_host, positions.astype(np.int32)])
+        self.ivf = dataclasses.replace(
+            self.ivf,
+            overflow=self._put(_padded_overflow(self._ivf_overflow_host),
+                               torch.int32),
+            overflow_count=len(self._ivf_overflow_host),
+        )
+
+    def _ivf_plan(
+        self, n: int, n_clusters: Optional[int], nprobe: Optional[int]
+    ) -> Tuple[int, int]:
+        """(clusters, nprobe) from the corpus size and settings, as the JAX
+        index plans them: sqrt(N) clusters, 8% of them probed, capped so the
+        probed rows stay near 5% of the corpus."""
+        clusters = n_clusters or int(settings.ivf_clusters) or max(
+            16, int(np.sqrt(n)))
+        clusters = min(clusters, n)
+        probe = nprobe or int(settings.ivf_nprobe) or max(
+            4, int(clusters * 0.08))
+        bucket_cap_est = max(8, int(2.0 * n / clusters))
+        max_probe = max(4, int(0.05 * n / bucket_cap_est))
+        return clusters, min(probe, max_probe, clusters)
+
+    def build_ivf(
+        self,
+        n_clusters: Optional[int] = None,
+        nprobe: Optional[int] = None,
+        seed: int = 0,
+    ) -> IvfState:
+        """Build (or rebuild) the probed-cluster dense index on the device.
+
+        Serving is not blocked for the k-means: the embeddings are copied
+        under the lock, the clustering runs outside it, and the finished
+        state installs atomically; rows inserted meanwhile join the
+        exact-scanned overflow tail. A renumbering of rows while k-means
+        ran (``_pos_gen`` moved) aborts the build."""
+        with self.lock:
+            if self.count == 0:
+                raise RuntimeError(f"{self.name}: empty corpus, nothing to build")
+            n = self.count
+            pos_gen = self._pos_gen
+            snapshot = self.emb[:n].clone()
+        if self.emb_dtype == torch.int8:
+            # k-means runs in float space (float centroids cast back to int8
+            # degenerate); the probed scan widens int8 rows and rescales
+            snapshot = snapshot.float() / 127.0
+        clusters, probe = self._ivf_plan(n, n_clusters, nprobe)
+        gen = torch.Generator(device=snapshot.device)
+        gen.manual_seed(int(seed))
+        centroids, assign = kmeans(snapshot, n_clusters=clusters, iters=10,
+                                   generator=gen)
+        del snapshot
+        bucket_cap = max(8, int(2.0 * n / clusters))
+        buckets_np, overflow_np = build_buckets(
+            assign.cpu().numpy(), clusters, bucket_cap)
+        with self.lock:
+            if self._pos_gen != pos_gen:
+                raise RuntimeError(
+                    f"{self.name}: concurrent compaction/restore "
+                    "invalidated the IVF build (row positions changed); "
+                    "re-run the build")
+            # rows inserted during the build join the overflow tail
+            self._ivf_overflow_host = np.concatenate(
+                [overflow_np, np.arange(n, self.count, dtype=np.int32)])
+            self.ivf = IvfState(
+                centroids=centroids,
+                buckets=self._put(buckets_np, torch.int32),
+                overflow=self._put(_padded_overflow(self._ivf_overflow_host),
+                                   torch.int32),
+                overflow_count=len(self._ivf_overflow_host),
+                built_count=n,
+                n_clusters=clusters,
+                nprobe=probe,
+            )
+            return self.ivf
+
+    def load_ivf_state(self, state) -> None:
+        """Install an IVF state carried from elsewhere — the JAX index's
+        ``IvfState`` (any object with its fields) — over the current rows,
+        as ``load_state`` carries the rows, so both packages can serve the
+        same IVF."""
+        with self.lock:
+            count = int(state.overflow_count)
+            overflow = np.asarray(state.overflow).astype(np.int32)
+            self._ivf_overflow_host = overflow[:count].copy()
+            self.ivf = IvfState(
+                centroids=self._put(np.asarray(state.centroids, np.float32),
+                                    torch.float32),
+                buckets=self._put(np.asarray(state.buckets), torch.int32),
+                overflow=self._put(overflow, torch.int32),
+                overflow_count=count,
+                built_count=int(state.built_count),
+                n_clusters=int(state.n_clusters),
+                nprobe=int(state.nprobe),
+            )
+
+    def _maybe_schedule_ivf_rebuild(self) -> None:
+        """Rebuild in a background thread once the overflow tail passes half
+        the built index (before ``ivf_usable`` turns false). The check and
+        the flag are set under the lock, so concurrent inserters start one
+        rebuild."""
+        with self.lock:
+            state = self.ivf
+            if (
+                state is None
+                or self._ivf_rebuilding
+                or not settings.dense_ivf_enabled
+                or state.overflow_count < max(state.built_count // 2, 8)
+            ):
+                return
+            self._ivf_rebuilding = True
+
+        def rebuild():
+            try:
+                self.build_ivf(seed=int(self.count))
+            except Exception:  # logged, never fatal to the inserting thread
+                logging.getLogger(__name__).exception(
+                    "ivf.rebuild_failed corpus=%s", self.name)
+            finally:
+                self._ivf_rebuilding = False
+
+        threading.Thread(target=rebuild, daemon=True).start()
+
+    def ivf_usable(self) -> bool:
+        """IVF serves the dense lane only while the exact-scanned tail is
+        smaller than the built index."""
+        return (self.ivf is not None
+                and self.ivf.overflow_count < max(self.ivf.built_count, 1))
+
+    def ivf_dense_query(
+        self, q_emb, allowed_calls, date_min, date_max, k: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dense lane from the IVF index -> (scores (B, k) f32,
+        positions (B, k) int64, -1 where no hit); inputs are host arrays
+        or tensors already on the device."""
+        with self.lock:
+            state = self.ivf
+            mask = filter_mask(
+                self.call_idx, self.started, self._put(allowed_calls, torch.bool),
+                self._put(date_min, torch.int32), self._put(date_max, torch.int32))
+            return ivf_topk(
+                self._put(q_emb, torch.float32), self.emb, state.centroids,
+                state.buckets, state.overflow, mask & self.has_emb[None, :],
+                k=min(k, self.capacity), nprobe=state.nprobe)
 
     # -- query -------------------------------------------------------------
     def query(
@@ -468,12 +677,18 @@ class CorpusIndex:
 class PackedDispatch:
     """An in-flight dispatch: the flat output's host copy (pinned and
     filled by a non-blocking D2H on CUDA), the event that marks it done,
-    and the host-mirror snapshot postprocess needs. ``ready`` carries
-    immediate results for the cold-start path (one corpus still empty)."""
+    and the host-mirror snapshot postprocess needs. ``extra_dense`` is the
+    host copy of an out-of-program dense lane (the IVF dispatch), and
+    ``served_chunk_mode`` the dense mode that actually served the chunks
+    ("ivf" falls back to "ann" when the index was dropped between planning
+    and dispatch). ``ready`` carries immediate results for the cold-start
+    path (one corpus still empty)."""
 
     flat_host: Optional[torch.Tensor] = None
     done: Optional[object] = None       # torch.cuda.Event or None
     sig: Optional[QuerySignature] = None
+    served_chunk_mode: Optional[str] = None
+    extra_dense: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     chunk_snap: Tuple[Optional[np.ndarray], int] = (None, 0)
     artifact_snap: Tuple[Optional[np.ndarray], int] = (None, 0)
     batch: int = 0
@@ -527,11 +742,14 @@ class DeviceIndexManager:
         recall_target: float,
     ) -> Tuple[Dict, Dict]:
         """Six lanes over both corpora from dense query vectors; per-corpus
-        calls while either corpus is still empty (cold start)."""
+        calls while either corpus is still empty (cold start), which serve a
+        planner "ivf" choice as ann."""
         batch = chunk_q_lex.shape[0]
         dense_enabled = q_emb is not None
         with self.chunks.lock, self.artifacts.lock:
             if self.chunks.count == 0 or self.artifacts.count == 0:
+                if chunk_mode == "ivf":
+                    chunk_mode = "ann"
                 return tuple(  # type: ignore[return-value]
                     corpus.query(
                         q_emb, q_lex, q_tech, allowed_calls, date_min,
@@ -544,6 +762,9 @@ class DeviceIndexManager:
                          artifact_mode),
                     )
                 )
+            chunk_mode, ivf_dense = self._resolve_chunk_dense(
+                chunk_mode, dense_enabled, q_emb, allowed_calls, date_min,
+                date_max, chunk_ks[0])
             put = self.chunks._put
             chunks_raw, artifacts_raw = dual_corpus_retrieve(
                 self.chunks.device_arrays(),
@@ -562,6 +783,9 @@ class DeviceIndexManager:
                 chunk_mode=chunk_mode, artifact_mode=artifact_mode,
                 dense_enabled=dense_enabled,
             )
+            if ivf_dense is not None:
+                chunks_raw = dict(chunks_raw)
+                chunks_raw["dense"] = ivf_dense
 
             def host(out):
                 return {lane: (_to_host(v), _to_host(p))
@@ -589,9 +813,11 @@ class DeviceIndexManager:
         """ONE packed H2D buffer and one device program for all six lanes,
         returning without waiting for the device: the flat output's D2H
         copy is enqueued into pinned memory behind the program, and
-        ``collect_packed`` waits for it. ``recall_target`` is accepted as
-        the JAX index's callers pass it; the port's ann lane is K1's fixed
-        candidate partition, which no target changes."""
+        ``collect_packed`` waits for it. A chunks ``"ivf"`` plan runs the
+        dense lane from the IVF index in a second dispatch and turns
+        ``fuse_rrf`` off. ``recall_target`` is accepted as the JAX index's
+        callers pass it; the port's ann lane is K1's fixed candidate
+        partition, which no target changes."""
         batch = q_tech.shape[0]
         dense_enabled = q_emb is not None
         F = int(settings.query_lex_features)
@@ -607,7 +833,9 @@ class DeviceIndexManager:
                 artifact_ks=artifact_ks, chunk_mode=chunk_mode,
                 artifact_mode=artifact_mode, recall_target=recall_target,
             )
-            return PackedDispatch(ready=ready)
+            return PackedDispatch(
+                ready=ready,
+                served_chunk_mode="ann" if chunk_mode == "ivf" else chunk_mode)
 
         # idf from LIVE counts, as the JAX index does
         chunk_sparse = sparse_lex_rows(
@@ -616,13 +844,19 @@ class DeviceIndexManager:
             q_lex_feats, self.artifacts.doc_freq, self.artifacts.live_count, F)
         packed = pack_queries(q_emb, chunk_sparse, artifact_sparse, q_tech,
                               allowed_calls, date_min, date_max)
-        # the upload references no corpus buffer: stage it outside the
-        # locks, from pinned memory so it does not wait for work already
-        # on the stream (an earlier batch's program)
-        d_packed = torch.from_numpy(packed)
-        if self.device.type == "cuda":
-            d_packed = d_packed.pin_memory().to(self.device, non_blocking=True)
+        # uploads that reference no corpus buffer are staged outside the
+        # locks: the packed batch, and the IVF dispatch's inputs
+        d_packed = _stage(packed, self.device)
+        ivf_inputs = (q_emb, allowed_calls, date_min, date_max)
+        if dense_enabled and chunk_mode == "ivf":
+            ivf_inputs = tuple(_stage(a, self.device) for a in ivf_inputs)
         with self.chunks.lock, self.artifacts.lock:
+            chunk_mode, ivf_dense = self._resolve_chunk_dense(
+                chunk_mode, dense_enabled, *ivf_inputs, chunk_ks[0])
+            # device RRF needs every lane in the packed program: with the
+            # IVF dense lane in its own dispatch ("none") the caller merges
+            # the lanes on the host
+            fuse_rrf = bool(fuse_rrf and chunk_mode != "none")
             sig = QuerySignature(
                 batch=batch,
                 emb_dim=self.chunks.dim if dense_enabled else 1,
@@ -631,7 +865,7 @@ class DeviceIndexManager:
                 chunk_ks=_clamp_ks(chunk_ks, self.chunks.capacity),
                 artifact_ks=_clamp_ks(artifact_ks, self.artifacts.capacity),
                 chunk_mode=chunk_mode, artifact_mode=artifact_mode,
-                dense_enabled=dense_enabled, fuse_rrf=bool(fuse_rrf),
+                dense_enabled=dense_enabled, fuse_rrf=fuse_rrf,
             )
             flat = dual_corpus_retrieve_packed(
                 self.chunks.device_arrays(), self.artifacts.device_arrays(),
@@ -646,16 +880,34 @@ class DeviceIndexManager:
             artifact_snap = (self.artifacts.h_ids, self.artifacts.count)
         done = None
         if flat.is_cuda:
-            flat_host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            flat_host.copy_(flat, non_blocking=True)
+            flat_host = _to_pinned(flat)
+            if ivf_dense is not None:
+                ivf_dense = tuple(_to_pinned(t) for t in ivf_dense)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(flat.device))
         else:
             flat_host = flat
         return PackedDispatch(
-            flat_host=flat_host, done=done, sig=sig, chunk_snap=chunk_snap,
+            flat_host=flat_host, done=done, sig=sig,
+            served_chunk_mode="ivf" if chunk_mode == "none" else chunk_mode,
+            extra_dense=ivf_dense, chunk_snap=chunk_snap,
             artifact_snap=artifact_snap, batch=batch,
         )
+
+    def _resolve_chunk_dense(
+        self, chunk_mode, dense_enabled, q_emb, allowed_calls, date_min,
+        date_max, k_dense,
+    ):
+        """The chunks corpus's dense mode, resolved under the locks: a
+        dropped IVF falls back to ann; a live IVF serves the dense lane in
+        its own dispatch and the packed program skips it ("none").
+        -> (mode, IVF dense result or None)."""
+        if not (dense_enabled and chunk_mode == "ivf"):
+            return chunk_mode, None
+        if self.chunks.ivf is None:
+            return "ann", None
+        return "none", self.chunks.ivf_dense_query(
+            q_emb, allowed_calls, date_min, date_max, k_dense)
 
     def collect_packed(self, disp: PackedDispatch) -> Tuple[Dict, Dict]:
         """Wait for a dispatch's flat output and map positions -> doc ids.
@@ -681,6 +933,9 @@ class DeviceIndexManager:
                     artifacts_m, *disp.artifact_snap)},
             )
         chunks_np, artifacts_np = unflatten_lanes(flat_np, **layout)
+        if disp.extra_dense is not None:
+            chunks_np = dict(chunks_np)
+            chunks_np["dense"] = tuple(_to_host(t) for t in disp.extra_dense)
         return (
             self.chunks.postprocess_lanes(chunks_np, disp.batch, *disp.chunk_snap),
             self.artifacts.postprocess_lanes(

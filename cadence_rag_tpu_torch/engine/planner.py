@@ -1,12 +1,13 @@
-"""Dense-lane planner: exact scan vs approximate per query.
+"""Dense-lane planner: exact scan, IVF or approximate per query.
 
 Counterpart of ``cadence_rag_tpu/engine/planner.py`` (reference
 app/retrieve.py:267-287): zero candidates -> exact; scoped filters with a
-masked candidate count at or under the exact-scan threshold -> exact;
-otherwise ann. In the port "exact" is an f32 matmul plus the tie-safe exact
-top-k, and "ann" is kernel K1's top-1-per-group candidates (one of every 8
-rows kept, then an exact top-k). The port has no IVF index, so "ivf" is
-never chosen here.
+masked candidate count at or under the exact-scan threshold -> exact; an
+IVF index that is usable, enabled (``settings.dense_ivf_enabled``) and a
+candidate count of at least ``settings.ivf_min_rows`` -> ivf; otherwise
+ann. In the port "exact" is an f32 matmul plus the tie-safe exact top-k,
+"ivf" the probed-cluster scan of ``ops/ivf.py``, and "ann" kernel K1's
+top-1-per-group candidates (one of every 8 rows kept, then an exact top-k).
 """
 
 from __future__ import annotations
@@ -14,13 +15,21 @@ from __future__ import annotations
 from cadence_rag_tpu.config import settings
 
 
-def choose_dense_mode(estimated_rows: int, scoped: bool) -> str:
+def choose_dense_mode(
+    estimated_rows: int, scoped: bool, ivf_available: bool = False
+) -> str:
     if estimated_rows <= 0:
         return "exact"
     if scoped and estimated_rows <= max(
         int(settings.embeddings_exact_scan_threshold), 0
     ):
         return "exact"
+    if (
+        ivf_available
+        and settings.dense_ivf_enabled
+        and estimated_rows >= int(settings.ivf_min_rows)
+    ):
+        return "ivf"
     return "ann"
 
 

@@ -129,7 +129,8 @@ def plan_text_queries(
     """One query per text, unbounded dates -> (positional args of
     ``query_both_packed_async``, (chunk mode, artifact mode)). The modes
     come from the port's planner over each corpus's candidate estimate for
-    the first query's scope."""
+    the first query's scope; an IVF index counts for the chunks corpus
+    only, as the JAX engine plans (engine/retrieve.py:244-254)."""
     batch = len(texts)
     q_emb = np.asarray(HashEmbeddingProvider().embed(list(texts)).vectors,
                        dtype=np.float32)
@@ -144,6 +145,7 @@ def plan_text_queries(
     modes = tuple(
         choose_dense_mode(corpus.estimate_candidates(
             allowed[0] if scoped else None, int(dmin[0]), int(dmax[0]),
-            unfiltered=not scoped), scoped)
+            unfiltered=not scoped), scoped,
+            ivf_available=corpus is index.chunks and corpus.ivf_usable())
         for corpus in (index.chunks, index.artifacts))
     return (q_emb, feats, q_tech, allowed, dmin, dmax), modes

@@ -2,7 +2,10 @@
 
 Route: ``nvcc`` straight to a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds, not minutes), loaded with
-``ctypes``; every pointer and the stream pass as ``c_void_p``. The library
+``ctypes``; every pointer and the stream pass as ``c_void_p``. Each source
+compiles to an object in its own nvcc process, all started together, and
+one more nvcc links them, so the build takes as long as the slowest
+source rather than the sum. The library
 lands in ``build/cadence_rag_tpu_torch/libkernels.so`` beside the package
 (``build/`` is git-ignored) and is rebuilt only when the hash of the
 sources and flags changes. The build happens at first use — importing
@@ -33,10 +36,9 @@ LIB_PATH = BUILD_DIR / "libkernels.so"
 STAMP_PATH = BUILD_DIR / "libkernels.sha256"
 LOG_PATH = BUILD_DIR / "build.log"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -81,20 +83,36 @@ def build() -> Path:
         last_build_seconds = 0.0
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.tmp.so"
-    cu_files = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *cu_files]
+    nvcc = nvcc_path()
+    tag = os.getpid()
+    tmp = BUILD_DIR / f"libkernels.{tag}.tmp.so"
+    objs, procs = [], []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: exit code {proc.returncode}\n{err}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: exit code {proc.returncode}\n{proc.stderr}")
     last_build_seconds = time.perf_counter() - t0
-    LOG_PATH.write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr, encoding="utf-8"
-    )
-    if proc.returncode != 0:
+    LOG_PATH.write_text("\n".join(log), encoding="utf-8")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     STAMP_PATH.write_text(digest + "\n")
     return LIB_PATH
@@ -109,6 +127,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, i32, p, p, p,      # q_emb, q_lex, emb, emb_is_int8, lex, mask, has_emb
         i64, i32, i32, i32, i32,    # n, batch, dim, lex_dim, do_dense
         p, p, p, p, i64,            # d_vals, d_idx, l_vals, l_idx, n_cand
+        p,                          # stream
+    ]
+    lib.ck_dense_scan.restype = i32
+    lib.ck_dense_scan.argtypes = [
+        p, p, p, i64, i32, i32,     # q, rows, mask, n, batch, dim
+        i32, p, p, i64,             # block_n, vals, idx, n_cand
         p,                          # stream
     ]
     lib.ck_tech_keys.restype = i32

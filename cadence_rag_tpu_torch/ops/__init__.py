@@ -9,6 +9,9 @@
 - ``masks``      — call/date filter scoping as a (B, N) bool plane.
 - ``fused_scan`` — kernel K1: dense + lexical scored in one pass over the
                    corpus, top-1 per group (the port's approximate top-k).
+- ``dense_scan`` — kernel K2: the dense lane alone, top-1 per contiguous
+                   group (the recall gate's ``pallas`` mode).
+- ``ivf``        — the IVF index: k-means build, buckets, probed top-k.
 - ``tech_keys``  — kernel K3: the tech lane's (recency, row) order keys.
 - ``fusion``     — RRF on the device, and the host oracle merge.
 - ``fused``      — one corpus's three lanes.

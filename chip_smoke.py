@@ -20,6 +20,19 @@ final result line:
              through ``query_both_packed_async`` -> ``collect_packed`` with
              device RRF, unscoped (chunks served "ann") and scoped ("exact").
              Each known row must come first; K1 and K3 must have launched.
+6. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
+             (a contiguous and a random 5% mask) and at a ragged 100,000
+             rows, batch 64; CUDA-event times for both.
+7. recall  — the port's ANN recall gate in-process: modes ann, pallas (K2)
+             and ivf at 1M rows, 64 queries, k 10, densities 1.0 and 0.003
+             contiguous and 0.05 random; hnsw at 16,384 rows unfiltered;
+             recall under 0.95 fails (ivf under a filter is printed, not
+             held). Then the filtered-recall sweep at 1M rows. K2 must
+             have launched.
+8. ivf     — ``build_ivf`` on phase 5's chunks, then one unscoped batch of
+             128 planned with ``dense_ivf_enabled``: the planner must choose
+             ivf, IVF must serve the chunks' dense lane, and every known
+             row must come first (host RRF, as device RRF is off).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -45,6 +58,7 @@ N_CALLS = 1024
 CHUNK_KS = (50, 50, 50)          # (dense, lexical, tech), engine/retrieve.py
 ARTIFACT_KS = (10, 10, 50)
 KNOWN_CALL = 7
+N_KNOWN = 16
 KNOWN_ID0 = 50_000_000
 KNOWN_STARTED = 1_760_000_000    # after every synthetic row: newest call
 # K1 tolerances: f32 sums of exact products taken in another order
@@ -120,26 +134,40 @@ def row_scores(q, table, scale, b_idx, rows, slab=8192):
     return out
 
 
-def check_lane(kv, ki, pv, pi, lane, atol, threshold=None):
+def k1_in_group(rows, cand):
+    """K1's partition: candidate c holds rows ``(c // 128)*1024 + w*128 +
+    c % 128``."""
+    from cadence_rag_tpu_torch.ops.fused_scan import BLOCK_ROWS, GROUPS
+
+    return (rows // BLOCK_ROWS == cand // GROUPS) & (rows % GROUPS == cand % GROUPS)
+
+
+def k1_top50(vals, rows):
+    from cadence_rag_tpu_torch.ops.fused_scan import candidate_topk
+
+    return candidate_topk(vals, rows, 50)
+
+
+def check_lane(kv, ki, pv, pi, lane, atol, threshold=None, *,
+               in_group=k1_in_group, top=k1_top50, name="K1"):
     """Kernel vs plain candidates of one lane; every kernel candidate is
     proven, not only counted:
 
     - values agree within ``atol`` where both are finite; a lexical
       candidate may flip between -inf and a score at the match threshold
       (the f32 sum landing on the other side of 1e-3);
-    - each finite kernel candidate's row lies in its own group (block
-      c // 128, rows ``w*128 + c % 128``) and passes the lane's mask;
+    - each finite kernel candidate's row lies in its own group
+      (``in_group``; K1's by default) and passes the lane's mask; a
+      candidate that is -inf in both names the same row (its group's
+      first);
     - where the kernel's row differs from the plain version's (or only the
       kernel found one), that row's score is recomputed from the inputs:
       it must equal the kernel's value and lie within ``atol`` of the plain
       winner, so the swap is a true near-tie;
-    - the lane's top-50 rows are rescored from the inputs the same way.
+    - the lane's final top-k (``top``: K1's top-50 by default) is rescored
+      from the inputs the same way.
 
     ``lane`` = (q, table, scale, keep (B, N) bool, n)."""
-    from cadence_rag_tpu_torch.ops.fused_scan import (
-        BLOCK_ROWS, GROUPS, candidate_topk,
-    )
-
     q, table, scale, keep, n = lane
     batch, nc = kv.shape
     finite_k, finite_p = torch.isfinite(kv), torch.isfinite(pv)
@@ -156,11 +184,14 @@ def check_lane(kv, ki, pv, pi, lane, atol, threshold=None):
             raise RuntimeError(f"{n_flips} candidates masked differently")
     rows = ki.long()
     cand = torch.arange(nc, device=kv.device)[None, :]
-    in_group = ((rows >= 0) & (rows < n) & (rows // BLOCK_ROWS == cand // GROUPS)
-                & (rows % GROUPS == cand % GROUPS))
-    if not bool((in_group | ~finite_k).all()):
-        raise RuntimeError(f"{int((~in_group & finite_k).sum())} kernel "
+    inside = (rows >= 0) & (rows < n) & in_group(rows, cand)
+    if not bool((inside | ~finite_k).all()):
+        raise RuntimeError(f"{int((~inside & finite_k).sum())} kernel "
                            "candidates name a row outside their group")
+    empty_moved = int((~finite_k & ~finite_p & (ki != pi)).sum())
+    if empty_moved:
+        raise RuntimeError(f"{empty_moved} all-masked groups name another row "
+                           "than the plain version's")
     passes = keep.gather(1, rows.clamp(0, n - 1))
     if not bool((passes | ~finite_k).all()):
         raise RuntimeError(f"{int((~passes & finite_k).sum())} kernel "
@@ -183,23 +214,23 @@ def check_lane(kv, ki, pv, pi, lane, atol, threshold=None):
                 f"kernel rows that differ from the plain version score "
                 f"{rescore_err} from the kernel's value, {gap} from the "
                 f"plain winner (tol {atol}): not near-ties")
-    # the lane's final top-50, as the main path takes it
-    k_vals, k_pos = candidate_topk(kv, ki, 50)
-    p_vals, p_pos = candidate_topk(pv, pi, 50)
+    # the lane's final top-k, as its caller takes it
+    k_vals, k_pos = top(kv, ki)
+    p_vals, p_pos = top(pv, pi)
     fin = torch.isfinite(p_vals)
     if not torch.equal(fin, torch.isfinite(k_vals)) or float(
             (k_vals[fin] - p_vals[fin]).abs().max()) > atol:
-        raise RuntimeError("K1 top-50 values disagree with the plain version")
+        raise RuntimeError(f"{name} top-k values disagree with the plain version")
     b_idx, j_idx = torch.isfinite(k_vals).nonzero(as_tuple=True)
     top_rows = k_pos[b_idx, j_idx]
     top_err = float((row_scores(q, table, scale, b_idx, top_rows)
                      - k_vals[b_idx, j_idx]).abs().max())
     if top_err > atol or not bool(keep[b_idx, top_rows].all()):
-        raise RuntimeError(f"K1 top-50 rows rescore {top_err} from their "
+        raise RuntimeError(f"{name} top-k rows rescore {top_err} from their "
                            f"values (tol {atol}) or fail the lane's mask")
     return {"max_abs_err": max_err, "rescore_err": max(rescore_err, top_err),
             "near_tie_rows": n_differ, "threshold_flips": n_flips,
-            "top50_id_diffs": int((k_pos != p_pos).sum())}
+            "top_id_diffs": int((k_pos != p_pos).sum())}
 
 
 def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
@@ -243,7 +274,7 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
         f"rows rescored from the inputs within {max(dense['rescore_err'], lexical['rescore_err']):.3g}; "
         f"near-tie rows {dense['near_tie_rows']}/{lexical['near_tie_rows']} "
         f"of {batch * nc}, threshold flips {lexical['threshold_flips']}, "
-        f"top-50 id diffs {dense['top50_id_diffs']}/{lexical['top50_id_diffs']}")
+        f"top-50 id diffs {dense['top_id_diffs']}/{lexical['top_id_diffs']}")
     del args
     torch.cuda.empty_cache()
     return result
@@ -293,9 +324,157 @@ def check_k3(device, n, batch, slots, seed, reps):
             "finite_top50": matches}
 
 
+# -- K2 -----------------------------------------------------------------------
+def k2_inputs(device, n, batch, dim, mask_kind, seed):
+    """Unit bf16 rows, queries near random rows, and a 5% mask: one
+    contiguous window per query (a date or call filter) or random rows."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.randn((n, dim), generator=g, device=device)
+    x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    rows = x.to(torch.bfloat16)
+    src = torch.randint(0, n, (batch,), generator=g, device=device)
+    q = x[src] + 0.05 * torch.randn((batch, dim), generator=g, device=device)
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    del x
+    m = int(0.05 * n)
+    if mask_kind == "contiguous":
+        start = torch.randint(0, n - m + 1, (batch, 1), generator=g, device=device)
+        cols = torch.arange(n, device=device)[None, :]
+        mask = (cols >= start) & (cols < start + m)
+    else:
+        mask = torch.rand((batch, n), generator=g, device=device) < 0.05
+    return q, rows, mask
+
+
+def check_k2(device, n, batch, dim, mask_kind, seed, reps):
+    from cadence_rag_tpu_torch.ops.dense_scan import (
+        DEFAULT_BLOCK_N, LANE, candidate_topk, dense_scan, dense_scan_plain,
+        n_candidates,
+    )
+
+    block_n = DEFAULT_BLOCK_N
+    width = block_n // LANE
+    args = k2_inputs(device, n, batch, dim, mask_kind, seed)
+    q, rows, mask = args
+    got = dense_scan(*args, block_n=block_n)
+    torch.cuda.synchronize()
+    want = dense_scan_plain(*args, block_n=block_n)
+    nc = n_candidates(n, block_n)
+    if got[0].shape != (batch, nc) or want[0].shape != (batch, nc):
+        raise RuntimeError(f"K2 candidate shape {tuple(got[0].shape)} != {(batch, nc)}")
+    stats = check_lane(
+        got[0], got[1], want[0], want[1],
+        (q.to(torch.bfloat16).float(), rows, 1.0, mask, n), DENSE_ATOL,
+        in_group=lambda r, c: ((r // block_n == c // LANE)
+                               & ((r % block_n) // width == c % LANE)),
+        top=lambda v, i: candidate_topk(v, i, 10), name="K2")
+    del got, want
+    ms = cuda_ms(lambda: dense_scan(*args, block_n=block_n), reps)
+    plain_ms = cuda_ms(lambda: dense_scan_plain(*args, block_n=block_n), 2)
+    gflop = 2.0 * batch * n * dim / 1e9
+    log(f"K2 dense_scan n={n} batch={batch} mask={mask_kind} 5% block_n={block_n}: "
+        f"kernel {ms:.3f} ms ({gflop / ms:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
+        f"(CUDA events); max |err| {stats['max_abs_err']:.3g} (tol {DENSE_ATOL}); "
+        f"rows rescored from the inputs within {stats['rescore_err']:.3g}; "
+        f"near-tie rows {stats['near_tie_rows']} of {batch * nc}; top-10 id "
+        f"diffs {stats['top_id_diffs']}")
+    del args
+    torch.cuda.empty_cache()
+    return {"n": n, "batch": batch, "dim": dim, "mask": mask_kind,
+            "block_n": block_n, **stats, "ms": ms, "plain_ms": plain_ms,
+            "tflops": gflop / ms}
+
+
+# -- the recall gate and the filtered sweep -----------------------------------
+GATE_CASES = ((1.0, "contiguous"), (0.003, "contiguous"), (0.05, "random"))
+MIN_RECALL = 0.95
+
+
+def run_recall(device, n, n_queries, k, hnsw_n, sweep_n, sweep_rounds,
+               cases=GATE_CASES):
+    """The port's recall gate in-process: modes ann, pallas and ivf at n
+    rows for each (density, mask shape) case, hnsw at hnsw_n rows
+    unfiltered, then the
+    filtered-recall sweep at sweep_n rows. A recall under MIN_RECALL fails,
+    as the gate's CLI exits 1 — except ivf under a filter, whose probes
+    ignore the mask: that recall is printed, not held."""
+    import contextlib
+    import io
+
+    from cadence_rag_tpu_torch.evals.ann_recall_gate import (
+        gen_docs, make_queries, mode_topk, recall_from_arrays,
+    )
+    from cadence_rag_tpu_torch.evals.filtered_recall_sweep import run_sweep
+
+    docs = gen_docs(n, n_centers=max(64, n // 64), seed=0, device=device)
+    inputs = {case: make_queries(docs, n_queries, seed=0, density=case[0],
+                                 mask_shape=case[1]) for case in cases}
+    rows, misses = [], []
+    for mode in ("ann", "pallas", "ivf"):
+        t0 = time.perf_counter()
+        fn = mode_topk(mode, docs, k=k)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for (density, shape), (queries, mask_row) in inputs.items():
+            got = recall_from_arrays(docs, queries, mask_row, mode, k=k,
+                                     batch=n_queries, topk_fn=fn)
+            held = not (mode == "ivf" and density < 1.0)
+            rows.append({"mode": mode, "n": n, "density": density,
+                         "mask": shape, "recall_at_k": got["recall_at_k"],
+                         "held": held, "ms": got["mode_ms"],
+                         "build_s": build_s})
+            if held and got["recall_at_k"] < MIN_RECALL:
+                misses.append(rows[-1])
+    del docs, fn
+    hnsw_docs = gen_docs(hnsw_n, n_centers=max(64, hnsw_n // 64), seed=0,
+                         device=device)
+    queries, mask_row = make_queries(hnsw_docs, n_queries, seed=0,
+                                     density=1.0, mask_shape="contiguous")
+    t0 = time.perf_counter()
+    fn = mode_topk("hnsw", hnsw_docs, k=k)
+    build_s = time.perf_counter() - t0
+    got = recall_from_arrays(hnsw_docs, queries, mask_row, "hnsw", k=k,
+                             batch=n_queries, topk_fn=fn)
+    rows.append({"mode": "hnsw", "n": hnsw_n, "density": 1.0,
+                 "mask": "contiguous", "recall_at_k": got["recall_at_k"],
+                 "held": True, "ms": got["mode_ms"], "build_s": build_s})
+    if got["recall_at_k"] < MIN_RECALL:
+        misses.append(rows[-1])
+    del hnsw_docs, fn
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log("recall@%d (%d queries): " % (k, n_queries) + "; ".join(
+        f"{r['mode']} n={r['n']} {r['mask']} {r['density']}: "
+        f"{r['recall_at_k']:.4f}{'' if r['held'] else ' (not held)'} "
+        f"in {r['ms']:.1f} ms" for r in rows))
+    if misses:
+        raise RuntimeError(f"recall under {MIN_RECALL}: {misses}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        sweep = run_sweep(n=sweep_n, batch=32, k=k,
+                          densities=[0.003, 0.01, 0.05, 0.25, 1.0],
+                          targets=[0.95], mask_shapes=["contiguous", "random"],
+                          rounds=sweep_rounds, device=device)
+    log(f"sweep n={sweep_n} batch 32, {sweep_rounds} rounds (ann lane vs "
+        "masked exact): " + "; ".join(
+            f"{r['mask']} {r['density']}: {r['recall_at_k']:.4f} "
+            f"({r['approx_ms']:.2f} vs {r['exact_ms']:.2f} ms)" for r in sweep))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"gate": rows, "sweep": sweep}
+
+
 # -- main path ----------------------------------------------------------------
 KNOWN_TEXT = ("incident {i}: kafka consumer lag on broker-{i} after the "
               "gateway upgrade to v3.{i}.7 caused ECONNRESET storms")
+
+
+def known_rows(n_known):
+    """The known rows' texts and tech tokens -> (texts, tokens)."""
+    texts = [KNOWN_TEXT.format(i=i) for i in range(n_known)]
+    tokens = [[f"broker-{i}", f"v3.{i}.7"] for i in range(n_known)]
+    return texts, tokens
 
 
 def build_index(device, n_chunks, n_artifacts, n_known):
@@ -310,8 +489,7 @@ def build_index(device, n_chunks, n_artifacts, n_known):
     index.ensure_call_capacity(N_CALLS)
     install_synthetic_corpus(index.chunks, n_chunks, N_CALLS, seed=0)
     install_synthetic_corpus(index.artifacts, n_artifacts, N_CALLS, seed=1)
-    texts = [KNOWN_TEXT.format(i=i) for i in range(n_known)]
-    tokens = [[f"broker-{i}", f"v3.{i}.7"] for i in range(n_known)]
+    texts, tokens = known_rows(n_known)
     insert_text_rows(index.chunks, texts, tokens, doc_id0=KNOWN_ID0,
                      call_seq=KNOWN_CALL, started0=KNOWN_STARTED)
     return index, texts, tokens
@@ -360,6 +538,60 @@ def check_first(out, expected, what):
     return float(scores[:, 0].mean()), int(masks[0, 0])
 
 
+def check_first_lanes(out, expected, what):
+    """Per-lane output (device RRF off): the host RRF merge of the chunks'
+    lanes, and the dense lane itself, must put each known row first."""
+    from cadence_rag_tpu_torch.ops.fusion import rrf_merge_rect
+
+    chunks = out[0]
+    merged = rrf_merge_rect({"bm25": chunks["lex"], "tech_tokens": chunks["tech"],
+                             "dense": chunks["dense"]})
+    first = np.array([ids[0] if ids.size else -1 for ids, *_ in merged])
+    dense_first = np.where(chunks["dense"][2] > 0, chunks["dense"][0][:, 0], -1)
+    for got, lane in ((first, "fused"), (dense_first, "dense")):
+        wrong = np.flatnonzero(got != expected)
+        if wrong.size:
+            raise RuntimeError(
+                f"{what}: known row not first in the {lane} list for "
+                f"{wrong.size} queries, e.g. query {wrong[0]} got "
+                f"{got[wrong[0]]} want {expected[wrong[0]]}")
+
+
+def run_ivf_batch(index, texts, tokens, batch):
+    """Build the chunks' IVF index, plan one unscoped batch with
+    ``dense_ivf_enabled`` set (the planner must choose ivf) and serve it:
+    the chunks' dense lane must be served by IVF and every known row must
+    come first. -> (planned modes, args, summary)"""
+    from cadence_rag_tpu.config import settings
+
+    t0 = time.perf_counter()
+    state = index.chunks.build_ivf()
+    if index.device.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    enabled = settings.dense_ivf_enabled
+    settings.dense_ivf_enabled = True
+    try:
+        args, modes, expected = plan_batch(index, texts, tokens, batch, False)
+    finally:
+        settings.dense_ivf_enabled = enabled
+    if modes[0] != "ivf":
+        raise RuntimeError(f"planner chose {modes[0]!r} for the chunks, not ivf")
+    disp = index.query_both_packed_async(
+        *args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS, chunk_mode=modes[0],
+        artifact_mode=modes[1], recall_target=0.95, fuse_rrf=True)
+    out = index.collect_packed(disp)
+    if disp.served_chunk_mode != "ivf":
+        raise RuntimeError(f"chunks served {disp.served_chunk_mode!r}, not ivf")
+    check_first_lanes(out, expected, "ivf")
+    return modes, args, {
+        "build_s": build_s, "n_clusters": state.n_clusters,
+        "nprobe": state.nprobe, "built_count": state.built_count,
+        "overflow_count": state.overflow_count,
+        "bucket_cap": int(state.buckets.shape[1]), "modes": modes,
+    }
+
+
 def run_main_path(device, n_chunks, n_artifacts, batch, n_known):
     """Build, plan, and serve one unscoped and one scoped batch.
     -> (index, batches [(name, args, modes, expected)], summary)"""
@@ -389,6 +621,7 @@ def main(argv=None) -> int:
         return 2
     from cadence_rag_tpu_torch.device import resolve_device
     from cadence_rag_tpu_torch.kernels import build
+    from cadence_rag_tpu_torch.ops.dense_scan import dense_scan
     from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
     from cadence_rag_tpu_torch.ops.tech_keys import tech_keys
 
@@ -421,8 +654,9 @@ def main(argv=None) -> int:
 
     fused_scan.launches = 0
     tech_keys.launches = 0
+    dense_scan.launches = 0
     index, batches, summary = run_main_path(
-        device, 1_000_000, 100_000, batch=128, n_known=16)
+        device, 1_000_000, 100_000, batch=128, n_known=N_KNOWN)
     launches = {"fused_scan": fused_scan.launches, "tech_keys": tech_keys.launches}
     if min(launches.values()) <= 0:
         raise RuntimeError(f"main path did not launch every kernel: {launches}")
@@ -442,6 +676,50 @@ def main(argv=None) -> int:
             for name, *_ in batches)
         + f"; every known row first; launches {launches}")
 
+    details["k2"] = check_k2(device, 1_048_576, 128, 1024, "contiguous", seed=4, reps=5)
+    details["k2_random"] = check_k2(device, 1_048_576, 128, 1024, "random",
+                                    seed=5, reps=5)
+    details["k2_ragged"] = check_k2(device, 100_000, 64, 1024, "random",
+                                    seed=6, reps=5)
+    k2_err = max(details[key]["max_abs_err"]
+                 for key in ("k2", "k2_random", "k2_ragged"))
+
+    dense_scan.launches = 0
+    fused_scan.launches = 0
+    details["recall"] = run_recall(device, 1_048_576, 64, 10, hnsw_n=16_384,
+                                   sweep_n=1_048_576, sweep_rounds=2)
+    recall_launches = {"dense_scan": dense_scan.launches,
+                       "fused_scan": fused_scan.launches}
+    if min(recall_launches.values()) <= 0:
+        raise RuntimeError(f"the recall gate did not launch K1 and K2: {recall_launches}")
+
+    fused_scan.launches = 0
+    tech_keys.launches = 0
+    dense_scan.launches = 0
+    texts, tokens = known_rows(N_KNOWN)
+    ivf_modes, ivf_args, ivf = run_ivf_batch(index, texts, tokens, 128)
+    ivf_launches = {"fused_scan": fused_scan.launches,
+                    "tech_keys": tech_keys.launches,
+                    "dense_scan": dense_scan.launches}
+    if min(ivf_launches["fused_scan"], ivf_launches["tech_keys"]) <= 0:
+        raise RuntimeError(f"the ivf batch did not launch K1 and K3: {ivf_launches}")
+    times = []
+    for _ in range(4):
+        t = time.perf_counter()
+        index.collect_packed(index.query_both_packed_async(
+            *ivf_args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS,
+            chunk_mode=ivf_modes[0], artifact_mode=ivf_modes[1],
+            recall_target=0.95, fuse_rrf=True))
+        times.append((time.perf_counter() - t) * 1e3)
+    ivf["warm_batch_ms"] = times[1:]
+    details["ivf"] = ivf
+    log(f"ivf: built over {ivf['built_count']} chunks in {ivf['build_s']:.2f} s "
+        f"({ivf['n_clusters']} clusters, bucket cap {ivf['bucket_cap']}, "
+        f"nprobe {ivf['nprobe']}, overflow {ivf['overflow_count']}); planned "
+        f"{ivf_modes}, served ivf; unscoped batch of 128 warm "
+        f"{np.median(ivf['warm_batch_ms']):.1f} ms; every known row first "
+        f"(fused and dense); launches {ivf_launches}")
+
     kernels = [
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
@@ -455,6 +733,12 @@ def main(argv=None) -> int:
          "launches": launches["tech_keys"],
          "max_abs_err": details["k3"]["max_abs_err"],
          "ms": details["k3"]["ms"], "plain_ms": details["k3"]["plain_ms"]},
+        {"name": "dense_scan", "route": "cuda",
+         "source": "cadence_rag_tpu_torch/csrc/dense_scan.cu",
+         "replaces": "cadence_rag_tpu/ops/pallas_topk.py:84",
+         "launches": recall_launches["dense_scan"],
+         "max_abs_err": k2_err,
+         "ms": details["k2"]["ms"], "plain_ms": details["k2"]["plain_ms"]},
     ]
     if opts.details is not None:
         opts.details.parent.mkdir(parents=True, exist_ok=True)

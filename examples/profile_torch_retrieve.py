@@ -5,7 +5,9 @@
 
 Builds chip_smoke.py's index (1M synthetic chunks + 100k artifact chunks
 plus known rows), then for the unscoped ("ann") and the scoped ("exact")
-batch of 128 queries: device time per warm batch by kernel name (kernel
+batch of 128 queries, and for the unscoped batch again once the chunks
+have an IVF index ("ivf", built as chip_smoke.py's phase 8 builds it):
+device time per warm batch by kernel name (kernel
 rows of ``torch.profiler``'s ``key_averages()`` only, since an ``aten::``
 row repeats the time of the kernels it launched), wall time and the
 device's busy share. Last, the host split of one unscoped batch: enqueue
@@ -56,9 +58,13 @@ def main() -> int:
     dev = torch.device("cuda")
     index, texts, tokens = chip_smoke.build_index(dev, 1_000_000, 100_000, 16)
     out = {}
-    for name, scoped in (("unscoped", False), ("scoped", True)):
-        args, modes, _expected = chip_smoke.plan_batch(index, texts, tokens,
-                                                       128, scoped)
+    for name in ("unscoped", "scoped", "ivf"):
+        if name == "ivf":
+            modes, args, out["ivf_index"] = chip_smoke.run_ivf_batch(
+                index, texts, tokens, 128)
+        else:
+            args, modes, _expected = chip_smoke.plan_batch(
+                index, texts, tokens, 128, name == "scoped")
         for _ in range(2):
             chip_smoke.serve_batch(index, args, modes)
         torch.cuda.synchronize()

@@ -1,8 +1,8 @@
-"""Kernels K1 and K3 on a CUDA card against their plain versions, at the
-edge shapes the main path can hand them: partial query tiles (batch not a
-multiple of 64 or 16), ragged row blocks, int8 embeddings, the dense half
-off, a two-block tech query structure; and the whole packed dispatch on
-the card against the same index on the CPU.
+"""Kernels K1, K2 and K3 on a CUDA card against their plain versions, at
+the edge shapes their callers can hand them: partial query tiles (batch not
+a multiple of 64 or 16), ragged row blocks, int8 embeddings, the dense half
+off, every K2 block size, a two-block tech query structure; and the whole
+packed dispatch on the card against the same index on the CPU.
 
 Needs a card, so every test here carries the ``cuda`` marker and skips
 without one. The machine with the card has no jax, which tests/conftest.py
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cadence_rag_tpu_torch.ops import dense_scan as k2
 from cadence_rag_tpu_torch.ops import fused_scan as k1
 from cadence_rag_tpu_torch.ops import tech_keys as k3
 
@@ -70,6 +71,56 @@ def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
             continue
         assert g.shape == (b, k1.n_candidates(n))
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def _k2_inputs(rng, n, dim, b, density=0.8):
+    """Grid values: every sum is exact in f32, so kernel and plain version
+    agree bit for bit and ties (frequent on the grid) go to the same row."""
+    rows = torch.from_numpy(
+        rng.integers(-64, 65, size=(n, dim)).astype(np.float32) / 64.0
+    ).to(torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-8, 9, size=(b, dim)).astype(np.float32) / 8.0)
+    mask = torch.from_numpy(rng.random((b, n)) < density)
+    return q, rows, mask
+
+
+def _k2_check(cuda, args, block_n):
+    want = k2.dense_scan_plain(*args, block_n=block_n)
+    before = k2.dense_scan.launches
+    got = k2.dense_scan(*(a.to(cuda) for a in args), block_n=block_n)
+    torch.cuda.synchronize()
+    assert k2.dense_scan.launches == before + 1
+    n, b = args[1].shape[0], args[0].shape[0]
+    for g, w in zip(got, want):
+        assert g.shape == (b, k2.n_candidates(n, block_n))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("block_n", list(range(256, 2049, 128)))
+def test_k2_kernel_matches_plain_every_block_n(cuda, block_n):
+    """Every block size (width 2..16), a ragged last block, a partial
+    query tile."""
+    rng = np.random.default_rng(block_n)
+    _k2_check(cuda, _k2_inputs(rng, 3 * block_n + 200, 64, 70), block_n)
+
+
+@pytest.mark.parametrize("n,b,density", [
+    (1, 1, 1.0), (100, 3, 0.8), (1024, 64, 0.8), (1025, 65, 0.3),
+    (100_000, 64, 0.05),
+])
+def test_k2_kernel_matches_plain_ragged(cuda, n, b, density):
+    rng = np.random.default_rng(n + b)
+    _k2_check(cuda, _k2_inputs(rng, n, 64, b, density), k2.DEFAULT_BLOCK_N)
+
+
+def test_k2_refuses_int8_rows(cuda):
+    rows = torch.zeros((1024, 64), dtype=torch.int8, device=cuda)
+    q = torch.zeros((2, 64), device=cuda)
+    mask = torch.ones((2, 1024), dtype=torch.bool, device=cuda)
+    before = k2.dense_scan.launches
+    with pytest.raises(TypeError, match="int8"):
+        k2.dense_scan(q, rows, mask)
+    assert k2.dense_scan.launches == before
 
 
 @pytest.mark.parametrize("n,b,slots,capacity", [
