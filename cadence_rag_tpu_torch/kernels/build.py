@@ -124,7 +124,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ck_error_string.argtypes = [i32]
     lib.ck_fused_scan.restype = i32
     lib.ck_fused_scan.argtypes = [
-        p, p, p, i32, p, p, p,      # q_emb, q_lex, emb, emb_is_int8, lex, mask, has_emb
+        p, p, p, i32, p,            # q_emb, q_lex pieces, emb, emb_is_int8, lex
+        p, i64, p,                  # mask, mask row pitch, has_emb
         i64, i32, i32, i32, i32,    # n, batch, dim, lex_dim, do_dense
         p, p, p, p, i64,            # d_vals, d_idx, l_vals, l_idx, n_cand
         p,                          # stream

@@ -16,11 +16,15 @@ query stays f32 against int8 values.
 ``fused_scan`` launches the kernel for CUDA tensors and runs
 ``fused_scan_plain`` — the definition of the candidates, ragged last block
 included — only for CPU tensors. ``fused_scan.launches`` counts kernel
-launches.
+launches. Before the launch the wrapper rounds the dense query to bf16,
+splits the f32 lexical query into three bf16 pieces (``split_query``), the
+operands of the kernel's bf16 tensor-core products, and stores both in the
+kernel's K order (``kernel_order``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -104,6 +108,56 @@ def fused_scan_plain(
             torch.cat([p[1] for p in d_parts], dim=1), l_vals, l_idx)
 
 
+def split_query(q: torch.Tensor) -> torch.Tensor:
+    """(B, K) f32 -> (3, B, K) bf16 pieces h, m, l with h = bf16(q),
+    m = bf16(q - h), l = bf16(q - h - m). Both differences are exact in f32,
+    so h + m + l rebuilds q within ~2^-27 |q|, and each piece times an int8
+    value is exact in the kernel's f32 accumulation."""
+    q = q.float()
+    h = q.to(torch.bfloat16)
+    r = q - h.float()
+    m = r.to(torch.bfloat16)
+    low = (r - m.float()).to(torch.bfloat16)
+    return torch.stack([h, m, low]).contiguous()
+
+
+# Each 32-wide K slab of the kernel's queries holds, at logical column
+# 16s + 2c + b + 8h, element 8c + 4s + 2h + b of the slab: the wgmma A
+# fragment of a thread with c = lane % 4 then covers elements [8c, 8c + 8)
+# of a staged row, both 16-wide K steps in one load (csrc/fused_scan.cu).
+_SLAB = 32
+_SLAB_ORDER = [8 * ((col % 8) // 2) + 4 * s + 2 * (col // 8) + col % 2
+               for s in range(2) for col in range(16)]
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_order(device: torch.device) -> torch.Tensor:
+    # made once per device: a copy from host memory on every call would
+    # wait for the stream's earlier work
+    return torch.tensor(_SLAB_ORDER, device=device)
+
+
+def kernel_order(q: torch.Tensor) -> torch.Tensor:
+    """(..., K) -> the same values with each 32-wide K slab in the kernel's
+    order; K must be a multiple of 32."""
+    k = q.shape[-1]
+    slabs = q.reshape(*q.shape[:-1], k // _SLAB, _SLAB)
+    return slabs.index_select(-1, _slab_order(q.device)).reshape(q.shape).contiguous()
+
+
+def _kernel_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The kernel reads the mask by TMA as (128 groups, row/128, query)
+    tiles: a row pitch that is not a multiple of 128 (a ragged corpus) gets
+    a zero-padded copy."""
+    batch, n = mask.shape
+    if n % GROUPS == 0 and mask.data_ptr() % 16 == 0:
+        return mask
+    padded = torch.zeros((batch, -(-n // GROUPS) * GROUPS), dtype=torch.bool,
+                         device=mask.device)
+    padded[:, :n] = mask
+    return padded
+
+
 def _check_cuda_inputs(q_emb, q_lex, emb, lex, mask, has_emb, dense) -> None:
     n, lex_dim = lex.shape
     batch = q_lex.shape[0]
@@ -147,11 +201,15 @@ def fused_scan(
         raise ValueError(f"fused_scan: unsupported device {lex.device}")
     q_lex = q_lex.float().contiguous()
     if dense:
-        q_emb = q_emb.to(torch.bfloat16).float().contiguous()
+        q_emb = q_emb.to(torch.bfloat16).contiguous()
     _check_cuda_inputs(q_emb, q_lex, emb, lex, mask, has_emb, dense)
     lib = build.load()
     n, lex_dim = lex.shape
     batch = q_lex.shape[0]
+    pieces = kernel_order(split_query(q_lex))
+    if dense:
+        q_emb = kernel_order(q_emb)
+    kmask = _kernel_mask(mask)
     nc = n_candidates(n)
     dev = lex.device
     l_vals = torch.empty((batch, nc), dtype=torch.float32, device=dev)
@@ -161,10 +219,10 @@ def fused_scan(
         d_vals = torch.empty_like(l_vals)
         d_idx = torch.empty_like(l_idx)
     err = lib.ck_fused_scan(
-        q_emb.data_ptr() if dense else None, q_lex.data_ptr(),
+        q_emb.data_ptr() if dense else None, pieces.data_ptr(),
         emb.data_ptr() if dense else None,
         int(dense and emb.dtype == torch.int8), lex.data_ptr(),
-        mask.data_ptr(), has_emb.data_ptr(),
+        kmask.data_ptr(), kmask.shape[1], has_emb.data_ptr(),
         n, batch, int(emb.shape[1]) if dense else 32, lex_dim, int(dense),
         d_vals.data_ptr() if dense else None,
         d_idx.data_ptr() if dense else None,

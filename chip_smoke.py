@@ -44,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +65,9 @@ KNOWN_STARTED = 1_760_000_000    # after every synthetic row: newest call
 # K1 tolerances: f32 sums of exact products taken in another order
 DENSE_ATOL = 1e-4                # 1024-term sums of |score| <= 1
 LEX_ATOL = 1e-3                  # 4096-term sums, |score| up to ~1e2
+# published H100 SXM peaks (dense bf16 tensor rate, HBM3 bandwidth)
+BF16_PEAK_TFLOPS = 989.0
+HBM_PEAK_GBS = 3350.0
 
 
 def log(msg: str) -> None:
@@ -259,16 +263,26 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
     ms = cuda_ms(lambda: fused_scan(*args, dense=True), reps)
     plain_ms = cuda_ms(lambda: fused_scan_plain(*args, dense=True), 1)
     lex_only_ms = cuda_ms(lambda: fused_scan(*args, dense=False), reps)
+    # useful work; the tensor work with the lexical query's three bf16
+    # pieces counted; the bytes the call must read from device memory
     gflop = 2.0 * batch * n * (dim + lex_dim) / 1e9
+    tensor_gflop = 2.0 * batch * n * (dim + 3 * lex_dim) / 1e9
+    gbytes = (n * (dim * emb.element_size() + lex_dim + 1) + batch * n) / 1e9
     result = {
         "n": n, "batch": batch, "dim": dim, "lex_dim": lex_dim,
         "emb_dtype": str(emb_dtype), "dense": dense, "lex": lexical,
         "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms, "lex_only_ms": lex_only_ms,
-        "tflops": gflop / ms,
+        "tflops": gflop / ms, "tensor_tflops": tensor_gflop / ms,
+        "tensor_share": tensor_gflop / ms / BF16_PEAK_TFLOPS,
+        "gbs": gbytes / ms * 1e3, "hbm_share": gbytes / ms * 1e3 / HBM_PEAK_GBS,
     }
     log(f"K1 fused_scan n={n} batch={batch} {emb_dtype}: kernel {ms:.3f} ms "
-        f"({gflop / ms:.2f} TFLOP/s), lexical-only {lex_only_ms:.3f} ms, "
+        f"({gflop / ms:.2f} TFLOP/s useful; {tensor_gflop / ms:.2f} TFLOP/s of "
+        f"bf16 tensor work with the 3-piece split, {result['tensor_share']:.1%} "
+        f"of {BF16_PEAK_TFLOPS:.0f}; {result['gbs']:.0f} GB/s, "
+        f"{result['hbm_share']:.1%} of {HBM_PEAK_GBS:.0f}), lexical-only "
+        f"{lex_only_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms; max |err| dense {dense['max_abs_err']:.3g} "
         f"(tol {DENSE_ATOL}) lex {lexical['max_abs_err']:.3g} (tol {LEX_ATOL}); "
         f"rows rescored from the inputs within {max(dense['rescore_err'], lexical['rescore_err']):.3g}; "
@@ -278,6 +292,31 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
     del args
     torch.cuda.empty_cache()
     return result
+
+
+def ptxas_report(text):
+    """ptxas's verbose output -> one record per compiled kernel: its
+    registers per thread at entry and its spill bytes."""
+    report, name, spills = [], None, (0, 0)
+    for ln in text.splitlines():
+        found = re.search(r"Function properties for \S*?([a-z_]+_kernel)(\w*)", ln)
+        if found:
+            name = found.group(1)
+            args = re.match(r"ILi(\d+)E(13__nv_bfloat16|a)E", found.group(2))
+            if args:
+                name += f"<{args.group(1)}, {'bf16' if args.group(2) != 'a' else 'int8'}>"
+            spills = (0, 0)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if found:
+            spills = (int(found.group(1)), int(found.group(2)))
+            continue
+        found = re.search(r"Used (\d+) registers", ln)
+        if found and name:
+            report.append({"kernel": name, "registers": int(found.group(1)),
+                           "spill_stores": spills[0], "spill_loads": spills[1]})
+            name = None
+    return report
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -640,11 +679,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.LOG_PATH.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(build.LOG_PATH.read_text())
     details.update(build_s=build_s, nvcc_s=build.last_build_seconds, ptxas=ptxas)
     log(f"build: {build_s:.1f} s (nvcc {build.last_build_seconds:.1f} s) -> "
-        f"{build.LIB_PATH}; ptxas: " + " | ".join(ptxas))
+        f"{build.LIB_PATH}; ptxas (registers at entry, spill stores/loads B): "
+        + " | ".join(f"{r['kernel']} {r['registers']} regs, spills "
+                     f"{r['spill_stores']}/{r['spill_loads']}" for r in ptxas))
 
     details["k1"] = check_k1(device, 1_048_576, 128, 1024, 4096,
                              torch.bfloat16, seed=1, reps=5)

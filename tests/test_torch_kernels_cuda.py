@@ -49,17 +49,9 @@ def _k1_inputs(rng, n, dim, d, b, emb_dtype):
     return q_emb, q_lex, emb, lex, mask, has_emb
 
 
-@pytest.mark.parametrize("n,b,emb_dtype,dense", [
-    (8, 3, torch.bfloat16, True),
-    (100, 1, torch.int8, True),
-    (1024, 64, torch.bfloat16, False),
-    (2348, 5, torch.int8, True),
-    (5000, 128, torch.bfloat16, True),
-    (9000, 70, torch.bfloat16, True),
-])
-def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
-    rng = np.random.default_rng(n + b)
-    args = _k1_inputs(rng, n, 64, 128, b, emb_dtype)
+def _k1_check(cuda, args, dense):
+    """Kernel vs plain version, bit for bit (grid inputs)."""
+    n, b = args[3].shape[0], args[1].shape[0]
     want = k1.fused_scan_plain(*args, dense=dense)
     before = k1.fused_scan.launches
     got = k1.fused_scan(*(a.to(cuda) for a in args), dense=dense)
@@ -71,6 +63,79 @@ def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
             continue
         assert g.shape == (b, k1.n_candidates(n))
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,b,emb_dtype,dense", [
+    (8, 3, torch.bfloat16, True),
+    (100, 1, torch.int8, True),
+    (1024, 64, torch.bfloat16, False),
+    (2348, 5, torch.int8, True),
+    (5000, 128, torch.bfloat16, True),
+    (9000, 70, torch.bfloat16, True),
+])
+def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
+    rng = np.random.default_rng(n + b)
+    _k1_check(cuda, _k1_inputs(rng, n, 64, 128, b, emb_dtype), dense)
+
+
+@pytest.mark.parametrize("b", [1, 8, 63, 64, 127, 128, 129, 256, 300])
+def test_k1_batch_edges(cuda, b):
+    """Every query tile width (64, 128, 256) full and partial, a second
+    256-query tile past 256; both embedding types, dense on and off."""
+    rng = np.random.default_rng(b)
+    emb_dtype = torch.int8 if b % 2 else torch.bfloat16
+    args = _k1_inputs(rng, 2500, 64, 128, b, emb_dtype)
+    _k1_check(cuda, args, dense=True)
+    _k1_check(cuda, args, dense=False)
+
+
+@pytest.mark.parametrize("n", [127, 128, 1023, 1025])
+@pytest.mark.parametrize("emb_dtype", [torch.bfloat16, torch.int8])
+def test_k1_row_edges(cuda, n, emb_dtype):
+    """Ragged row counts at the edges of a 64-row tile pair and a block."""
+    rng = np.random.default_rng(n)
+    _k1_check(cuda, _k1_inputs(rng, n, 64, 128, 70, emb_dtype), dense=True)
+
+
+@pytest.mark.parametrize("emb_dtype,dense", [
+    (torch.bfloat16, True), (torch.int8, True), (torch.bfloat16, False),
+])
+def test_k1_main_path_widths(cuda, emb_dtype, dense):
+    """The main path's widths: 1024-d embeddings, 4096-wide signatures.
+    Grid sums stay exact in f32 at these widths."""
+    rng = np.random.default_rng(1024)
+    _k1_check(cuda, _k1_inputs(rng, 3000, 1024, 4096, 128, emb_dtype), dense)
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.bfloat16, torch.int8])
+def test_k1_gate_lex_dim_32(cuda, emb_dtype):
+    """The recall gate's and the sweep's 32-wide signatures."""
+    rng = np.random.default_rng(32)
+    _k1_check(cuda, _k1_inputs(rng, 5000, 64, 32, 64, emb_dtype), dense=True)
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.bfloat16, torch.int8])
+def test_k1_off_grid_lexical_query(cuda, emb_dtype):
+    """An f32 lexical query off the bf16 grid (scatter-added idf weights, as
+    the serving path densifies them) and unit-norm embeddings: the
+    three-piece split holds both lanes to chip_smoke's tolerances, every
+    differing candidate proven a near-tie by rescoring."""
+    import chip_smoke
+    from cadence_rag_tpu_torch.ops.lexical import LEX_MATCH_THRESHOLD
+
+    args = chip_smoke.k1_inputs(cuda, 20_000, 128, 1024, 4096, emb_dtype, seed=7)
+    q_emb, q_lex, emb, lex, mask, has_emb = args
+    assert not torch.equal(q_lex, q_lex.to(torch.bfloat16).float())
+    got = k1.fused_scan(*args, dense=True)
+    want = k1.fused_scan_plain(*args, dense=True)
+    torch.cuda.synchronize()
+    scale = 1.0 / 127.0 if emb_dtype == torch.int8 else 1.0
+    chip_smoke.check_lane(got[0], got[1], want[0], want[1],
+                          (q_emb.to(torch.bfloat16).float(), emb, scale,
+                           mask & has_emb[None, :], 20_000), chip_smoke.DENSE_ATOL)
+    chip_smoke.check_lane(got[2], got[3], want[2], want[3],
+                          (q_lex, lex, 1.0, mask, 20_000), chip_smoke.LEX_ATOL,
+                          LEX_MATCH_THRESHOLD)
 
 
 def _k2_inputs(rng, n, dim, b, density=0.8):
