@@ -34,13 +34,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cadence_rag_tpu.config import settings
-from cadence_rag_tpu.ingest import featurize
-from cadence_rag_tpu.ops.hashing import query_vector_from_features
-from cadence_rag_tpu.utils import events
-
+from ..config import settings
 from ..device import DeviceLike, resolve_device
 from ..ops.fused import _lanes_one_corpus, dual_corpus_retrieve
+from ..ops.hashing import query_vector_from_features
 from ..ops.ivf import build_buckets, ivf_topk, kmeans
 from ..ops.masks import filter_mask
 from ..ops.pack import (
@@ -50,6 +47,7 @@ from ..ops.pack import (
     unflatten_lanes,
     unflatten_merged,
 )
+from ..utils import events
 
 INT32_MIN = -2147483648
 INT32_MAX = 2147483647
@@ -975,6 +973,3 @@ def reset_index() -> None:
     global _index
     with _index_lock:
         _index = None
-    # the active lexical vocab belongs to the (store, index) pair; a fresh
-    # index must not inherit a previous corpus's head layout
-    featurize.set_active_vocab(None, 0)

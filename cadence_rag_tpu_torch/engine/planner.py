@@ -12,7 +12,7 @@ top-1-per-group candidates (one of every 8 rows kept, then an exact top-k).
 
 from __future__ import annotations
 
-from cadence_rag_tpu.config import settings
+from ..config import settings
 
 
 def choose_dense_mode(

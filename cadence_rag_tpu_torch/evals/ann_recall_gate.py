@@ -12,7 +12,7 @@ port's dense paths. Modes:
 - ``ivf``    — the probed-cluster index of ``ops/ivf.py`` (sqrt(N)
                clusters, 8% probed); its probes ignore the mask, so its
                filtered recall is reported, not a property of the index;
-- ``hnsw``   — the native HNSW graph (``cadence_rag_tpu.native.hnsw``, a
+- ``hnsw``   — the native HNSW graph (``native/hnsw.py``, a
                CPU cross-check, unfiltered only).
 
 The corpus is ``max(64, N/64)`` unit centers with 0.02 noise per row,
@@ -110,7 +110,7 @@ def mode_topk(mode: str, docs: torch.Tensor, *, k: int, ef_search: int = 80,
             q, docs, centroids, buckets, overflow, m, k=k,
             nprobe=nprobe)[1].cpu().numpy()
     if mode == "hnsw":
-        from cadence_rag_tpu.native.hnsw import HnswIndex
+        from ..native.hnsw import HnswIndex
 
         index = HnswIndex(docs.float().cpu().numpy(), m=16, ef_construction=64)
         return lambda q, m: index.search(

@@ -21,13 +21,12 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from cadence_rag_tpu.embed.stub import HashEmbeddingProvider
-from cadence_rag_tpu.ingest import featurize
-
 from ..core.index import (
     INT32_MAX, INT32_MIN, CorpusIndex, DeviceIndexManager, DocRow, _next_pow2,
 )
+from ..embed.stub import HashEmbeddingProvider
 from ..engine.planner import choose_dense_mode
+from ..ingest import featurize
 
 # rows per generation slab: bounds the f32 staging of the embeddings
 # (131072 x 1024 x 4 B = 512 MB)

@@ -132,14 +132,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.ck_dense_scan.restype = i32
     lib.ck_dense_scan.argtypes = [
-        p, p, p, i64, i32, i32,     # q, rows, mask, n, batch, dim
-        i32, p, p, i64,             # block_n, vals, idx, n_cand
+        p, p, i64, p, i64,          # q, rows, n_pad, mask, mask row pitch
+        i64, i32, i32, i32,         # n, batch, dim, block_n
+        p, p, i64,                  # vals, idx, n_cand
         p,                          # stream
     ]
-    lib.ck_tech_keys.restype = i32
-    lib.ck_tech_keys.argtypes = [
+    lib.ck_tech_topk.restype = i32
+    lib.ck_tech_topk.argtypes = [
         p, i32, p, i32, p, p,       # q, q_width, tech, slots, started, mask
-        i64, i32, p,                # n, batch, keys
+        i64, i32, i32, p, i64,      # n, batch, k, out, n_cand
         p,                          # stream
     ]
 

@@ -12,7 +12,8 @@
 - ``dense_scan`` — kernel K2: the dense lane alone, top-1 per contiguous
                    group (the recall gate's ``pallas`` mode).
 - ``ivf``        — the IVF index: k-means build, buckets, probed top-k.
-- ``tech_keys``  — kernel K3: the tech lane's (recency, row) order keys.
+- ``tech_keys``  — kernel K3: the tech lane's top-k by (recency, row).
+- ``hashing``    — lexical and tech-token feature hashing (host, numpy).
 - ``fusion``     — RRF on the device, and the host oracle merge.
 - ``fused``      — one corpus's three lanes.
 - ``pack``       — the packed single-buffer query transfer and flat output.

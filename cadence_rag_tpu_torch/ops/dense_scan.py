@@ -133,10 +133,11 @@ def _check_cuda_inputs(q_emb, rows, mask) -> None:
     if mask.dtype != torch.bool or tuple(mask.shape) != (batch, n):
         raise ValueError(f"dense_scan: mask {mask.dtype} {tuple(mask.shape)} "
                          f"must be bool ({batch}, {n})")
-    if tuple(q_emb.shape) != (batch, dim) or dim % 32 or rows.data_ptr() % 16:
+    if (tuple(q_emb.shape) != (batch, dim) or dim % 64 or rows.data_ptr() % 16
+            or q_emb.data_ptr() % 16):
         raise ValueError(f"dense_scan: q_emb {tuple(q_emb.shape)}, rows "
-                         f"{tuple(rows.shape)}: dim a multiple of 32, rows "
-                         "16-byte aligned")
+                         f"{tuple(rows.shape)}: dim a multiple of 64, rows and "
+                         "queries 16-byte aligned")
     if n >= 2**31:
         raise ValueError("dense_scan: row positions are int32")
 
@@ -150,8 +151,8 @@ def dense_scan(
         return dense_scan_plain(q_emb, rows, mask, block_n=block_n)
     if rows.device.type != "cuda":
         raise ValueError(f"dense_scan: unsupported device {rows.device}")
-    _width(block_n)
-    q_emb = q_emb.to(torch.bfloat16).float().contiguous()
+    width = _width(block_n)
+    q_emb = q_emb.to(torch.bfloat16).contiguous()
     _check_cuda_inputs(q_emb, rows, mask)
     lib = build.load()
     n, dim = rows.shape
@@ -159,10 +160,24 @@ def dense_scan(
     nc = n_candidates(n, block_n)
     vals = torch.empty((batch, nc), dtype=torch.float32, device=rows.device)
     idx = torch.empty((batch, nc), dtype=torch.int32, device=rows.device)
+    # the kernel's TMA reads whole groups of `width` rows: a row count that
+    # is not a multiple of width gets a zero-padded copy
+    n_pad = -(-n // width) * width
+    if n_pad != n:
+        padded = torch.zeros((n_pad, dim), dtype=rows.dtype, device=rows.device)
+        padded[:n] = rows
+        rows = padded
+    # the kernel reads each query's mask bytes 16 at a time: a row pitch
+    # that is not a multiple of 16 gets a zero-padded copy
+    if n % 16 or mask.data_ptr() % 16:
+        padded = torch.zeros((batch, -(-n // 16) * 16), dtype=torch.bool,
+                             device=mask.device)
+        padded[:, :n] = mask
+        mask = padded
     err = lib.ck_dense_scan(
-        q_emb.data_ptr(), rows.data_ptr(), mask.data_ptr(), n, batch, dim,
-        block_n, vals.data_ptr(), idx.data_ptr(), nc,
-        build.stream_handle(rows.device),
+        q_emb.data_ptr(), rows.data_ptr(), n_pad, mask.data_ptr(),
+        mask.shape[1], n, batch, dim, block_n, vals.data_ptr(),
+        idx.data_ptr(), nc, build.stream_handle(rows.device),
     )
     build.check(err, "dense_scan")
     dense_scan.launches += 1

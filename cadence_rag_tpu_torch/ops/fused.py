@@ -8,7 +8,8 @@ corpus and feeds every lane:
   top-k over the candidates;
 - dense in ``exact`` mode: ``dense_scores`` (an f32 matmul over widened
   slabs, as the JAX package leaves it to XLA) and the tie-safe exact top-k;
-- tech: kernel K3 (``ops/tech_keys.py``) and ``torch.topk`` over its keys.
+- tech: kernel K3 (``ops/tech_keys.py``): per-range top-ks of the tech
+  lane's order keys, and one ``torch.topk`` over them.
 
 On CPU tensors the kernels' plain versions run. Lane results are
 ``{name: (values f32 (B, k), positions int64 (B, k))}`` in the insertion

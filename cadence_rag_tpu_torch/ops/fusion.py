@@ -7,10 +7,10 @@ with first-occurrence order breaking ties (reference app/retrieve.py:245-260).
 - ``rrf_fuse_lanes_device``: the merge inside the device program, as torch
   ops; sums in f32 (the host oracle sums in f64, so candidates whose f64
   scores differ below f32 resolution may swap — the oracle decides).
-- ``rrf_merge_arrays`` … ``rrf_merge_rect``: the host merge, numpy over the native
-  C++ core (``cadence_rag_tpu.native.rrf``), re-implemented here because the
-  JAX module imports jax at the top. Same f64 accumulation order and the
-  same (score desc, first occurrence) order as the JAX package's.
+- ``rrf_merge_arrays`` … ``rrf_merge_rect``: the host merge, numpy over the
+  port's copy of the native C++ core (``native/rrf.py``). Same f64
+  accumulation order and the same (score desc, first occurrence) order as
+  the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Dict, List, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from cadence_rag_tpu.native import rrf as native_rrf
+from ..native import rrf as native_rrf
 
 DEFAULT_RRF_K = 60
 

@@ -18,10 +18,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cadence_rag_tpu.ops.hashing import LEX_QUANT_SCALE
-
 from .fused import dual_corpus_retrieve
 from .fusion import rrf_fuse_lanes_device
+from .hashing import LEX_QUANT_SCALE
 
 # fixed sparse width for query lexical features (word + trigram buckets)
 DEFAULT_F = 256

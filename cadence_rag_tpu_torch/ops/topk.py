@@ -11,7 +11,7 @@ every top-k here ranks a unique int64 key instead of the value itself:
 ``sortable_i32`` maps float32 bits to an int32 with the same order as the
 floats (IEEE total order: -0.0 < +0.0, as ``lax.top_k`` orders them), so
 the largest key is the largest value and, among equal values, the lowest
-index. Kernel K3 (``ops/tech_keys.py``) writes the same keys directly.
+index. Kernel K3 (``ops/tech_keys.py``) computes the same keys itself.
 """
 
 from __future__ import annotations

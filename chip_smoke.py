@@ -13,8 +13,11 @@ final result line:
              path's shapes (batch 128, 1,048,576 rows, 1024-d bf16, 4096-wide
              int8, a real filter mask, rows without embeddings) and at a
              ragged row count with int8 embeddings.
-4. K3      — ``tech_keys`` against its plain version at batch 128 x 1M rows,
-             16 slots: keys and top-k ids identical, ties included.
+4. K3      — the tech lane (``tech_keys.range_topk`` and its final topk)
+             against its plain version at batch 128 x 1M rows, 16 slots:
+             three match densities x k 1/10/50/64, a ragged row count,
+             batch 1 and 200; per-range keys and the lane's values and rows
+             identical, ties included. CUDA-event times at widths 16 and 32.
 5. main    — a port ``DeviceIndexManager`` with 1M synthetic chunks and 100k
              artifacts plus known rows; 128 planned queries naming them go
              through ``query_both_packed_async`` -> ``collect_packed`` with
@@ -22,7 +25,9 @@ final result line:
              Each known row must come first; K1 and K3 must have launched.
 6. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
              (a contiguous and a random 5% mask) and at a ragged 100,000
-             rows, batch 64; CUDA-event times for both.
+             rows, batch 64, with CUDA-event times beside the plain version
+             and ``torch.matmul`` of the bf16 product; then every block
+             size at 1M rows and ragged / aligned row counts at batch 1-300.
 7. recall  — the port's ANN recall gate in-process: modes ann, pallas (K2)
              and ivf at 1M rows, 64 queries, k 10, densities 1.0 and 0.003
              contiguous and 0.05 random; hnsw at 16,384 rows unfiltered;
@@ -36,14 +41,14 @@ final result line:
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
-measurement (and ptxas's register report) as JSON. Imports nothing of JAX.
+measurement (and ptxas's register report) as JSON. Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import re
 import subprocess
 import sys
@@ -276,6 +281,11 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
         "tflops": gflop / ms, "tensor_tflops": tensor_gflop / ms,
         "tensor_share": tensor_gflop / ms / BF16_PEAK_TFLOPS,
         "gbs": gbytes / ms * 1e3, "hbm_share": gbytes / ms * 1e3 / HBM_PEAK_GBS,
+        # the least time: the bytes once at the HBM rate, or the useful
+        # products at the bf16 tensor rate, whichever is larger
+        "bound_ms": max(gbytes / HBM_PEAK_GBS * 1e3, gflop / BF16_PEAK_TFLOPS),
+        "bound_by": ("bytes" if gbytes / HBM_PEAK_GBS * 1e3 >= gflop / BF16_PEAK_TFLOPS
+                     else "operations"),
     }
     log(f"K1 fused_scan n={n} batch={batch} {emb_dtype}: kernel {ms:.3f} ms "
         f"({gflop / ms:.2f} TFLOP/s useful; {tensor_gflop / ms:.2f} TFLOP/s of "
@@ -302,9 +312,11 @@ def ptxas_report(text):
         found = re.search(r"Function properties for \S*?([a-z_]+_kernel)(\w*)", ln)
         if found:
             name = found.group(1)
-            args = re.match(r"ILi(\d+)E(13__nv_bfloat16|a)E", found.group(2))
-            if args:
+            args = re.match(r"ILi(\d+)E(?:(13__nv_bfloat16|a)E)?", found.group(2))
+            if args and args.group(2):
                 name += f"<{args.group(1)}, {'bf16' if args.group(2) != 'a' else 'int8'}>"
+            elif args:
+                name += f"<{args.group(1)}>"
             spills = (0, 0)
             continue
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -320,47 +332,139 @@ def ptxas_report(text):
 
 
 # -- K3 -----------------------------------------------------------------------
-def check_k3(device, n, batch, slots, seed, reps):
-    from cadence_rag_tpu_torch.ops.tech_keys import tech_keys, tech_keys_plain
-    from cadence_rag_tpu_torch.ops.topk import topk_from_keys
+K3_DENSITIES = ("none", "smoke", "dense")
+K3_KS = (1, 10, 50)              # and ops/tech_keys.MAX_K
+# H100 SXM int32 rate: 64 int32 lanes per SM per clock x 132 SMs x 1.98 GHz
+INT32_PEAK_TOPS = 16.7
 
+
+def k3_inputs(device, n, batch, slots, density, seed, capacity=1):
+    """Tech slots, start seconds (every row of a call shares one: ties are
+    the normal case), ``capacity`` query structures per query, each copied
+    from a random row with half its columns empty, and a 90% mask.
+    ``density``: "none" — the queries' tokens are held by no row; "smoke" —
+    a few matches per 1024 rows; "dense" — the first 30% of rows hold a
+    token half the queries ask for, so those ranges hold more than k
+    matches, and a few start seconds read as -inf or as a NaN below it.
+    -> (q, tech, started, mask)"""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     tech = torch.randint(1, 5000, (n, slots), generator=g, device=device,
                          dtype=torch.int32)
-    # every row of a call shares its start second: ties are the normal case
     call_start = torch.randint(1_600_000_000, 1_750_000_000, (N_CALLS,),
                                generator=g, device=device, dtype=torch.int32)
     started = call_start[torch.randint(0, N_CALLS, (n,), generator=g,
                                        device=device)]
     started[torch.rand((n,), generator=g, device=device) < 0.01] = INT32_MIN
-    # slot-aligned query structures copied from random rows, some columns empty
-    src = torch.randint(0, n, (batch,), generator=g, device=device)
-    q = tech[src].clone()
+    src = torch.randint(0, n, (batch, capacity), generator=g, device=device)
+    q = tech[src].reshape(batch, capacity * slots).contiguous()
     q[torch.rand(q.shape, generator=g, device=device) < 0.5] = 0
+    if density == "none":
+        q[q != 0] += 5000
+    elif density == "dense":
+        tech[: int(0.3 * n), 0] = 7
+        q[::2, 0] = 7
+        odd = torch.rand((n,), generator=g, device=device)
+        started[odd < 0.001] = -8388608      # the bits of -inf
+        started[odd > 0.999] = -5            # a NaN below -inf
     mask = (torch.rand((batch, n), generator=g, device=device) < 0.9) & (
         started != INT32_MIN)[None, :]
-    got = tech_keys(q, tech, started, mask)
-    want = tech_keys_plain(q, tech, started, mask)
-    if not torch.equal(got, want):
-        bad = int((got != want).sum())
-        raise RuntimeError(f"K3 keys differ from the plain version at {bad} entries")
-    k_vals, k_ids = topk_from_keys(got, 50)
-    p_vals, p_ids = topk_from_keys(want, 50)
-    if not (torch.equal(k_ids, p_ids) and torch.equal(k_vals, p_vals)):
-        raise RuntimeError("K3 top-50 ids differ from the plain version")
-    matches = int(torch.isfinite(p_vals).sum())
-    ms = cuda_ms(lambda: tech_keys(q, tech, started, mask), reps)
-    plain_ms = cuda_ms(lambda: tech_keys_plain(q, tech, started, mask), 1)
-    topk_ms = cuda_ms(lambda: topk_from_keys(got, 50), reps)
-    log(f"K3 tech_keys n={n} batch={batch} slots={slots}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, top-50 over the keys {topk_ms:.3f} ms; keys "
-        f"and top-50 ids identical ({matches} finite of {batch * 50})")
-    del tech, started, q, mask, got, want
+    return q, tech, started, mask
+
+
+def check_k3_case(q, tech, started, mask, k):
+    """The kernel's per-range top-ks against ``range_topk_plain`` (the same
+    k keys per range), and the lane against ``tech_topk_plain``: values (as
+    bits) and rows identical, in order. -> finite entries of the lane"""
+    from cadence_rag_tpu_torch.ops.tech_keys import (
+        range_topk, range_topk_plain, tech_topk_keys, tech_topk_plain,
+    )
+
+    got = range_topk(q, tech, started, mask, k)
+    want = range_topk_plain(q, tech, started, mask, k)
+    batch = q.shape[0]
+    if got.shape != want.shape or not torch.equal(
+            got.view(batch, -1, k).sort(-1).values,
+            want.view(batch, -1, k).sort(-1).values):
+        raise RuntimeError(f"K3 per-range top-{k} keys differ from the plain "
+                           f"version ({q.shape[0]} x {tech.shape[0]})")
+    del got, want
+    g_vals, g_rows = tech_topk_keys(tech, started, q, mask, k)
+    p_vals, p_rows = tech_topk_plain(tech, started, q, mask, k)
+    if not (torch.equal(g_rows, p_rows) and torch.equal(
+            g_vals.view(torch.int32), p_vals.view(torch.int32))):
+        raise RuntimeError(f"K3 lane (k {k}) differs from the plain version")
+    return int(torch.isfinite(p_vals).sum())
+
+
+def check_k3(device, n, batch, slots, seed, reps):
+    """Every density x k at batch x n, then a ragged n, batch 1, batch 200
+    and two structures per query; then times at chip_smoke's traffic
+    ("smoke"), k 50, with one structure per query (16 wide) and two (32
+    wide, the main path's chunk queries). The kernels line reports the
+    32-wide times."""
+    from cadence_rag_tpu_torch.ops.tech_keys import (
+        MAX_K, n_candidates, range_topk, range_topk_plain, tech_topk_keys,
+    )
+    from cadence_rag_tpu_torch.ops.techlane import tech_match
+    from cadence_rag_tpu_torch.ops.topk import topk_from_keys
+
+    cases = []
+    for density in K3_DENSITIES:
+        args = k3_inputs(device, n, batch, slots, density, seed)
+        for k in (*K3_KS, MAX_K):
+            cases.append({"n": n, "batch": batch, "density": density, "k": k,
+                          "capacity": 1, "finite": check_k3_case(*args, k)})
+        del args
+    for nn, bb, cap in ((n - 12_345, batch, 1), (n, 1, 1), (n, 200, 1), (n, batch, 2)):
+        args = k3_inputs(device, nn, bb, slots, "smoke", seed + 1, capacity=cap)
+        cases.append({"n": nn, "batch": bb, "density": "smoke", "k": 50,
+                      "capacity": cap, "finite": check_k3_case(*args, 50)})
+        del args
     torch.cuda.empty_cache()
-    return {"n": n, "batch": batch, "slots": slots, "ms": ms,
-            "plain_ms": plain_ms, "topk_ms": topk_ms, "max_abs_err": 0.0,
-            "finite_top50": matches}
+    timing = {}
+    nc = n_candidates(n, 50)
+    for cap in (1, 2):
+        q, tech, started, mask = k3_inputs(device, n, batch, slots, "smoke", seed,
+                                           capacity=cap)
+        cand = range_topk(q, tech, started, mask, 50)
+        matches = int((tech_match(tech, q) & mask).sum())
+        # the bytes the kernel must move: slots and start seconds once, the
+        # mask bytes of the matching pairs, the query structures, the
+        # candidates; the operations: one compare per row and nonzero query
+        # column (a zero column matches nothing and needs none)
+        gbytes = (n * slots * 4 + n * 4 + matches + q.numel() * 4 + batch * nc * 8) / 1e9
+        compares = n * int((q != 0).sum())
+        bytes_ms = gbytes / HBM_PEAK_GBS * 1e3
+        ops_ms = compares / (INT32_PEAK_TOPS * 1e12) * 1e3
+        timing[cap * slots] = {
+            "ms": cuda_ms(lambda: range_topk(q, tech, started, mask, 50), reps),
+            "lane_ms": cuda_ms(lambda: tech_topk_keys(tech, started, q, mask, 50), reps),
+            "final_topk_ms": cuda_ms(lambda: topk_from_keys(cand, 50), reps),
+            "plain_ms": cuda_ms(lambda: range_topk_plain(q, tech, started, mask, 50), 1),
+            "matches": matches, "compares": compares,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+        }
+        del q, tech, started, mask, cand
+        torch.cuda.empty_cache()
+    t16, t32 = timing[slots], timing[2 * slots]
+    log(f"K3 tech lane n={n} batch={batch} slots={slots}: {len(cases)} cases "
+        "(densities none/smoke/dense x k 1/10/50/64, ragged n, batch 1 and 200, "
+        f"two structures a query) bit-identical to the plain lane (finite entries "
+        f"{[c['finite'] for c in cases]}); at chip_smoke traffic, k 50, width 16 "
+        f"({t16['matches']} matching pairs): kernel {t16['ms']:.3f} ms (bound "
+        f"{t16['bound_ms']:.3f} ms by {t16['bound_by']}), final topk "
+        f"{t16['final_topk_ms']:.3f} ms, lane {t16['lane_ms']:.3f} ms, plain "
+        f"{t16['plain_ms']:.3f} ms; width 32, the main path's ({t32['matches']} "
+        f"pairs): kernel {t32['ms']:.3f} ms (bound {t32['bound_ms']:.3f} ms by "
+        f"{t32['bound_by']}), final topk {t32['final_topk_ms']:.3f} ms, lane "
+        f"{t32['lane_ms']:.3f} ms, plain {t32['plain_ms']:.3f} ms")
+    return {"n": n, "batch": batch, "slots": slots, "cases": cases,
+            "timing": timing, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "max_abs_err": 0.0}
 
 
 # -- K2 -----------------------------------------------------------------------
@@ -386,13 +490,14 @@ def k2_inputs(device, n, batch, dim, mask_kind, seed):
     return q, rows, mask
 
 
-def check_k2(device, n, batch, dim, mask_kind, seed, reps):
+def check_k2(device, n, batch, dim, mask_kind, seed, reps, block_n=None,
+             timed=True):
     from cadence_rag_tpu_torch.ops.dense_scan import (
         DEFAULT_BLOCK_N, LANE, candidate_topk, dense_scan, dense_scan_plain,
         n_candidates,
     )
 
-    block_n = DEFAULT_BLOCK_N
+    block_n = block_n or DEFAULT_BLOCK_N
     width = block_n // LANE
     args = k2_inputs(device, n, batch, dim, mask_kind, seed)
     q, rows, mask = args
@@ -409,20 +514,57 @@ def check_k2(device, n, batch, dim, mask_kind, seed, reps):
                                & ((r % block_n) // width == c % LANE)),
         top=lambda v, i: candidate_topk(v, i, 10), name="K2")
     del got, want
-    ms = cuda_ms(lambda: dense_scan(*args, block_n=block_n), reps)
-    plain_ms = cuda_ms(lambda: dense_scan_plain(*args, block_n=block_n), 2)
-    gflop = 2.0 * batch * n * dim / 1e9
-    log(f"K2 dense_scan n={n} batch={batch} mask={mask_kind} 5% block_n={block_n}: "
-        f"kernel {ms:.3f} ms ({gflop / ms:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
-        f"(CUDA events); max |err| {stats['max_abs_err']:.3g} (tol {DENSE_ATOL}); "
-        f"rows rescored from the inputs within {stats['rescore_err']:.3g}; "
-        f"near-tie rows {stats['near_tie_rows']} of {batch * nc}; top-10 id "
-        f"diffs {stats['top_id_diffs']}")
+    result = {"n": n, "batch": batch, "dim": dim, "mask": mask_kind,
+              "block_n": block_n, **stats}
+    if timed:
+        ms = cuda_ms(lambda: dense_scan(*args, block_n=block_n), reps)
+        plain_ms = cuda_ms(lambda: dense_scan_plain(*args, block_n=block_n), 2)
+        # the library call that computes K2's arithmetic (the bf16 product),
+        # not its masked group max
+        q16 = q.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.matmul(q16, rows.T), reps)
+        gflop = 2.0 * batch * n * dim / 1e9
+        gbytes = (n * dim * 2 + batch * n + batch * dim * 2 + batch * nc * 8) / 1e9
+        bytes_ms = gbytes / HBM_PEAK_GBS * 1e3
+        ops_ms = gflop / BF16_PEAK_TFLOPS
+        result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      tflops=gflop / ms, gbs=gbytes / ms * 1e3,
+                      bound_ms=max(bytes_ms, ops_ms),
+                      bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"K2 dense_scan n={n} batch={batch} mask={mask_kind} 5% block_n={block_n}: "
+            f"kernel {ms:.3f} ms ({gflop / ms:.2f} TFLOP/s, {result['gbs']:.0f} GB/s; "
+            f"bound {result['bound_ms']:.3f} ms by {result['bound_by']}), plain "
+            f"{plain_ms:.3f} ms, torch.matmul of the bf16 product alone "
+            f"{library_ms:.3f} ms (CUDA events); max |err| {stats['max_abs_err']:.3g} "
+            f"(tol {DENSE_ATOL}); rows rescored from the inputs within "
+            f"{stats['rescore_err']:.3g}; near-tie rows {stats['near_tie_rows']} of "
+            f"{batch * nc}; top-10 id diffs {stats['top_id_diffs']}")
     del args
     torch.cuda.empty_cache()
-    return {"n": n, "batch": batch, "dim": dim, "mask": mask_kind,
-            "block_n": block_n, **stats, "ms": ms, "plain_ms": plain_ms,
-            "tflops": gflop / ms}
+    return result
+
+
+def check_k2_shapes(device, dim, seed):
+    """K2 at every block size (widths 2..16) at 1M rows and batch 128, then
+    ragged and grid-aligned row counts at batch 1, 64, 128 and 300, each
+    held to the plain version as ``check_k2`` holds it."""
+    from cadence_rag_tpu_torch.ops.dense_scan import MAX_BLOCK_N, MIN_BLOCK_N
+
+    cases = []
+    for block_n in range(MIN_BLOCK_N, MAX_BLOCK_N + 1, 128):
+        cases.append(check_k2(device, 1_048_576, 128, dim, "random", seed + block_n,
+                              0, block_n=block_n, timed=False))
+    for n, batch, block_n in ((100_003, 1, 384), (65_536, 64, 1024),
+                              (99_999, 128, 1280), (131_072, 300, 2048),
+                              (70_001, 300, 1920)):
+        cases.append(check_k2(device, n, batch, dim, "contiguous", seed + n,
+                              0, block_n=block_n, timed=False))
+    log(f"K2 shapes: every block_n 256..2048 at 1M rows, batch 128, and "
+        f"{len(cases) - 15} ragged / aligned shapes at batch 1-300 match the plain "
+        f"version (max |err| {max(c['max_abs_err'] for c in cases):.3g}, tol "
+        f"{DENSE_ATOL}; near-tie rows {sum(c['near_tie_rows'] for c in cases)}, "
+        f"top-10 id diffs {sum(c['top_id_diffs'] for c in cases)})")
+    return cases
 
 
 # -- the recall gate and the filtered sweep -----------------------------------
@@ -601,7 +743,7 @@ def run_ivf_batch(index, texts, tokens, batch):
     ``dense_ivf_enabled`` set (the planner must choose ivf) and serve it:
     the chunks' dense lane must be served by IVF and every known row must
     come first. -> (planned modes, args, summary)"""
-    from cadence_rag_tpu.config import settings
+    from cadence_rag_tpu_torch.config import settings
 
     t0 = time.perf_counter()
     state = index.chunks.build_ivf()
@@ -662,7 +804,7 @@ def main(argv=None) -> int:
     from cadence_rag_tpu_torch.kernels import build
     from cadence_rag_tpu_torch.ops.dense_scan import dense_scan
     from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
-    from cadence_rag_tpu_torch.ops.tech_keys import tech_keys
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
 
     device = resolve_device("cuda")
     # plain versions: full f32 matmuls (the lexical query is f32)
@@ -693,11 +835,11 @@ def main(argv=None) -> int:
     details["k3"] = check_k3(device, 1_048_576, 128, 16, seed=3, reps=10)
 
     fused_scan.launches = 0
-    tech_keys.launches = 0
+    range_topk.launches = 0
     dense_scan.launches = 0
     index, batches, summary = run_main_path(
         device, 1_000_000, 100_000, batch=128, n_known=N_KNOWN)
-    launches = {"fused_scan": fused_scan.launches, "tech_keys": tech_keys.launches}
+    launches = {"fused_scan": fused_scan.launches, "tech_topk": range_topk.launches}
     if min(launches.values()) <= 0:
         raise RuntimeError(f"main path did not launch every kernel: {launches}")
     for name, args, modes, _expected in batches:
@@ -721,8 +863,10 @@ def main(argv=None) -> int:
                                     seed=5, reps=5)
     details["k2_ragged"] = check_k2(device, 100_000, 64, 1024, "random",
                                     seed=6, reps=5)
-    k2_err = max(details[key]["max_abs_err"]
-                 for key in ("k2", "k2_random", "k2_ragged"))
+    details["k2_shapes"] = check_k2_shapes(device, 1024, seed=7)
+    k2_err = max([details[key]["max_abs_err"]
+                  for key in ("k2", "k2_random", "k2_ragged")]
+                 + [c["max_abs_err"] for c in details["k2_shapes"]])
 
     dense_scan.launches = 0
     fused_scan.launches = 0
@@ -734,14 +878,14 @@ def main(argv=None) -> int:
         raise RuntimeError(f"the recall gate did not launch K1 and K2: {recall_launches}")
 
     fused_scan.launches = 0
-    tech_keys.launches = 0
+    range_topk.launches = 0
     dense_scan.launches = 0
     texts, tokens = known_rows(N_KNOWN)
     ivf_modes, ivf_args, ivf = run_ivf_batch(index, texts, tokens, 128)
     ivf_launches = {"fused_scan": fused_scan.launches,
-                    "tech_keys": tech_keys.launches,
+                    "tech_topk": range_topk.launches,
                     "dense_scan": dense_scan.launches}
-    if min(ivf_launches["fused_scan"], ivf_launches["tech_keys"]) <= 0:
+    if min(ivf_launches["fused_scan"], ivf_launches["tech_topk"]) <= 0:
         raise RuntimeError(f"the ivf batch did not launch K1 and K3: {ivf_launches}")
     times = []
     for _ in range(4):
@@ -760,25 +904,26 @@ def main(argv=None) -> int:
         f"{np.median(ivf['warm_batch_ms']):.1f} ms; every known row first "
         f"(fused and dense); launches {ivf_launches}")
 
+    k1, k3, k2 = details["k1"], details["k3"], details["k2"]
     kernels = [
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
-         "launches": launches["fused_scan"],
-         "max_abs_err": details["k1"]["max_abs_err"],
-         "ms": details["k1"]["ms"], "plain_ms": details["k1"]["plain_ms"]},
-        {"name": "tech_keys", "route": "cuda",
+         "launches": launches["fused_scan"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
+        {"name": "tech_topk", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
-         "launches": launches["tech_keys"],
-         "max_abs_err": details["k3"]["max_abs_err"],
-         "ms": details["k3"]["ms"], "plain_ms": details["k3"]["plain_ms"]},
+         "launches": launches["tech_topk"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
         {"name": "dense_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/dense_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_topk.py:84",
-         "launches": recall_launches["dense_scan"],
-         "max_abs_err": k2_err,
-         "ms": details["k2"]["ms"], "plain_ms": details["k2"]["plain_ms"]},
+         "launches": recall_launches["dense_scan"], "max_abs_err": k2_err,
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]
     if opts.details is not None:
         opts.details.parent.mkdir(parents=True, exist_ok=True)
@@ -790,7 +935,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    # the port runs without JAX: make any import of it fail loudly
-    os.environ.pop("CADENCE_FORCE_PLATFORM", None)
+    # the port runs without JAX and without the JAX package: make any
+    # import of either fail loudly
     sys.modules["jax"] = None  # type: ignore[assignment]
+    sys.modules["cadence_rag_tpu"] = None  # type: ignore[assignment]
     sys.exit(main())

@@ -13,13 +13,14 @@ row repeats the time of the kernels it launched), wall time and the
 device's busy share. Last, the host split of one unscoped batch: enqueue
 (``query_both_packed_async``), waiting on the device, ``collect_packed``.
 Writes ``profile_main.json`` and one chrome trace per batch into DIR
-(default ``chiprun_out``). Imports nothing of JAX.
+(default ``chiprun_out``). Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -47,6 +48,17 @@ def kernel_rows(prof, reps):
     return sorted(rows, reverse=True)
 
 
+def launch_times(trace_path, needle, reps):
+    """Device time of each launch of the kernels whose name holds
+    ``needle``, in launch order, from the chrome trace -> [ms] for one
+    batch (the first of the ``reps`` batches traced)."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    durs = [e["dur"] / 1e3 for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"
+         and needle in e.get("name", "")), key=lambda e: e["ts"])]
+    return durs[: len(durs) // reps]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=REPO / "chiprun_out")
@@ -56,8 +68,13 @@ def main() -> int:
         return 2
     opts.out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi}")
     index, texts, tokens = chip_smoke.build_index(dev, 1_000_000, 100_000, 16)
-    out = {}
+    out = {"nvidia_smi": smi}
     for name in ("unscoped", "scoped", "ivf"):
         if name == "ivf":
             modes, args, out["ivf_index"] = chip_smoke.run_ivf_batch(
@@ -80,9 +97,17 @@ def main() -> int:
               f"kernels {dev_ms:.2f} ms/batch, busy share {dev_ms / wall_ms:.3f}")
         for ms, cnt, key in rows[:30]:
             print(f"  {ms:9.3f} ms  x{cnt:<4d} {key}")
+        trace = opts.out / f"trace_{name}.json"
+        prof.export_chrome_trace(str(trace))
+        # K3's launches in one batch (chunks, then artifacts) and the width
+        # of the batch's tech query structure (16 slots x capacity)
+        tech_ms = launch_times(trace, "tech_", REPS)
+        tech_width = int(args[2].shape[1])
+        print(f"  K3 per launch {[round(t, 3) for t in tech_ms]} ms; tech "
+              f"query width {tech_width}")
         out[name] = {"modes": modes, "wall_ms": wall_ms, "device_ms": dev_ms,
-                     "top": rows[:40]}
-        prof.export_chrome_trace(str(opts.out / f"trace_{name}.json"))
+                     "top": rows[:40], "tech_launch_ms": tech_ms,
+                     "tech_query_width": tech_width}
     args, modes, _expected = chip_smoke.plan_batch(index, texts, tokens, 128,
                                                    False)
     split = []
@@ -108,4 +133,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.modules["jax"] = None  # type: ignore[assignment]
+    sys.modules["cadence_rag_tpu"] = None  # type: ignore[assignment]
     sys.exit(main())

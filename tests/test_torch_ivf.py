@@ -7,6 +7,7 @@ in another order); the index's IVF dense lane gives the JAX index's ids.
 The mode tests mirror tests/integration/test_ivf_mode.py.
 """
 
+import dataclasses
 import time
 
 import jax
@@ -22,6 +23,7 @@ from cadence_rag_tpu.core.index import get_index as jax_get_index
 from cadence_rag_tpu.embed import embed_texts
 from cadence_rag_tpu.ingest import featurize
 from cadence_rag_tpu.ops import ivf as jivf
+from cadence_rag_tpu_torch.config import settings as port_settings
 from cadence_rag_tpu_torch.core.index import DeviceIndexManager
 from cadence_rag_tpu_torch.engine.planner import choose_dense_mode
 from cadence_rag_tpu_torch.ops import ivf as tivf
@@ -37,6 +39,26 @@ TOPICS = [
     "SSD tiering latency improvements",
     "kafka consumer lag after the broker upgrade",
 ]
+
+
+@pytest.fixture
+def tmp_store(tmp_store, monkeypatch):
+    """conftest's store, with the port's settings (an object of its own)
+    given the values the JAX package's settings have there."""
+    for field in dataclasses.fields(port_settings):
+        monkeypatch.setattr(port_settings, field.name,
+                            getattr(tmp_store, field.name))
+    return tmp_store
+
+
+@pytest.fixture
+def set_both(monkeypatch):
+    """Set one setting in both packages, so that they compare the same
+    configuration."""
+    def put(name, value):
+        monkeypatch.setattr(settings, name, value)
+        monkeypatch.setattr(port_settings, name, value)
+    return put
 
 
 def _t(x):
@@ -239,11 +261,11 @@ def test_ivf_state_from_jax_serves_the_jax_dense_ids(tmp_store):
 
 
 @pytest.mark.parametrize("emb_dtype", ["bfloat16", "int8"])
-def test_all_clusters_probed_equals_the_exact_scan(tmp_store, monkeypatch, emb_dtype):
+def test_all_clusters_probed_equals_the_exact_scan(tmp_store, set_both, emb_dtype):
     """nprobe == n_clusters scans every bucket: the IVF lane is the exact
     top-k of the f32 query against every row (int8 rows on the cosine
     scale)."""
-    monkeypatch.setattr(settings, "index_embedding_dtype", emb_dtype)
+    set_both("index_embedding_dtype", emb_dtype)
     rng = np.random.default_rng(1)
     idx, texts = _port_index(rng)
     state = idx.chunks.build_ivf(n_clusters=4, nprobe=4)
@@ -276,9 +298,9 @@ def test_overflow_tail_keeps_new_rows_visible(tmp_store):
     assert _dense_ids(out)[0][0] == 5_000
 
 
-def test_stale_ivf_falls_back_to_ann(tmp_store, monkeypatch):
-    monkeypatch.setattr(settings, "dense_ivf_enabled", True)
-    monkeypatch.setattr(settings, "ivf_min_rows", 8)
+def test_stale_ivf_falls_back_to_ann(tmp_store, set_both):
+    set_both("dense_ivf_enabled", True)
+    set_both("ivf_min_rows", 8)
     rng = np.random.default_rng(3)
     idx, texts = _port_index(rng, n_chunks=20)
     idx.chunks.build_ivf(n_clusters=4, nprobe=2)
@@ -307,15 +329,15 @@ def test_cold_start_serves_an_ivf_plan_as_ann(tmp_store):
     assert out[0]["dense"][0].shape[0] == 2
 
 
-def test_planner_mode_table_with_ivf(monkeypatch):
-    monkeypatch.setattr(settings, "dense_ivf_enabled", True)
-    monkeypatch.setattr(settings, "ivf_min_rows", 1000)
+def test_planner_mode_table_with_ivf(set_both):
+    set_both("dense_ivf_enabled", True)
+    set_both("ivf_min_rows", 1000)
     assert choose_dense_mode(5000, scoped=False) == "ann"
     assert choose_dense_mode(500, scoped=True) == "exact"
     assert choose_dense_mode(0, scoped=False, ivf_available=True) == "exact"
     assert choose_dense_mode(5000, scoped=False, ivf_available=True) == "ivf"
     assert choose_dense_mode(500, scoped=False, ivf_available=True) == "ann"
-    monkeypatch.setattr(settings, "dense_ivf_enabled", False)
+    set_both("dense_ivf_enabled", False)
     assert choose_dense_mode(5000, scoped=False, ivf_available=True) == "ann"
 
 
@@ -362,8 +384,8 @@ def test_rows_inserted_during_the_build_join_the_tail(tmp_store, monkeypatch):
     assert state.overflow_count == len(corpus._ivf_overflow_host)
 
 
-def test_background_rebuild_refreshes_the_index(tmp_store, monkeypatch):
-    monkeypatch.setattr(settings, "dense_ivf_enabled", True)
+def test_background_rebuild_refreshes_the_index(tmp_store, set_both):
+    set_both("dense_ivf_enabled", True)
     rng = np.random.default_rng(8)
     idx, texts = _port_index(rng, n_chunks=20)
     idx.chunks.build_ivf(n_clusters=4, nprobe=4)

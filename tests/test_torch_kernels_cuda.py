@@ -1,8 +1,9 @@
 """Kernels K1, K2 and K3 on a CUDA card against their plain versions, at
 the edge shapes their callers can hand them: partial query tiles (batch not
 a multiple of 64 or 16), ragged row blocks, int8 embeddings, the dense half
-off, every K2 block size, a two-block tech query structure; and the whole
-packed dispatch on the card against the same index on the CPU.
+off, every K2 block size and batch tile, the tech lane at three match
+densities and every k up to its limit; and the whole packed dispatch on the
+card against the same index on the CPU.
 
 Needs a card, so every test here carries the ``cuda`` marker and skips
 without one. The machine with the card has no jax, which tests/conftest.py
@@ -190,27 +191,79 @@ def test_k2_refuses_int8_rows(cuda):
 
 @pytest.mark.parametrize("n,b,slots,capacity", [
     (8, 1, 16, 1), (1000, 17, 16, 1), (4096, 128, 16, 2), (3333, 9, 8, 4),
+    (5000, 40, 32, 2),
 ])
-def test_k3_kernel_matches_plain(cuda, n, b, slots, capacity):
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_k3_lane_matches_plain_small(cuda, n, b, slots, capacity, k):
+    """Small grids of few token values: many matches per range, ties in
+    start seconds, rows with start seconds at -inf and below it (NaN)."""
+    import chip_smoke
+
+    if k > n:
+        pytest.skip("k above the row count")
+    rng = np.random.default_rng(n + k)
     tech = rng.integers(1, 30, size=(n, slots)).astype(np.int32)
     tech[rng.random((n, slots)) < 0.3] = 0
     started = np.repeat(rng.integers(1_600_000_000, 1_700_000_000, n // 10 + 1),
                         10)[:n].astype(np.int32)
     started[rng.random(n) < 0.05] = INT32_MIN
+    started[rng.random(n) < 0.01] = -8388608
+    started[rng.random(n) < 0.01] = -5
     q = rng.integers(0, 30, size=(b, slots * capacity)).astype(np.int32)
     mask = (rng.random((b, n)) < 0.9) & (started != INT32_MIN)[None, :]
-    args = [torch.from_numpy(x) for x in (q, tech, started, mask)]
-    want = k3.tech_keys_plain(*args)
-    got = k3.tech_keys(*(a.to(cuda) for a in args))
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, tech, started, mask)]
+    before = k3.range_topk.launches
+    chip_smoke.check_k3_case(*args, k)
+    assert k3.range_topk.launches == before + 2
+
+
+@pytest.mark.parametrize("density", ["none", "smoke", "dense"])
+@pytest.mark.parametrize("k", [1, 10, 50, k3.MAX_K])
+def test_k3_lane_matches_plain_1m(cuda, density, k):
+    """Batch 128 x 1M rows, chip_smoke's three match densities."""
+    import chip_smoke
+
+    args = chip_smoke.k3_inputs(cuda, 1_048_576, 128, 16, density, seed=11)
+    chip_smoke.check_k3_case(*args, k)
+
+
+@pytest.mark.parametrize("n,b", [(1_000_003, 128), (1_048_576, 1), (1_048_576, 200)])
+def test_k3_lane_edges_1m(cuda, n, b):
+    """A ragged row count, batch 1 and batch 200 (two query groups past
+    the CTA's eight), k 50."""
+    import chip_smoke
+
+    args = chip_smoke.k3_inputs(cuda, n, b, 16, "smoke", seed=12)
+    chip_smoke.check_k3_case(*args, 50)
+
+
+def test_k3_refuses_k_above_max(cuda):
+    args = [torch.zeros((2, 16), dtype=torch.int32, device=cuda),
+            torch.zeros((4096, 16), dtype=torch.int32, device=cuda),
+            torch.zeros((4096,), dtype=torch.int32, device=cuda),
+            torch.ones((2, 4096), dtype=torch.bool, device=cuda)]
+    with pytest.raises(ValueError, match="k"):
+        k3.range_topk(*args, k3.MAX_K + 1)
+
+
+@pytest.mark.parametrize("block_n", list(range(256, 2049, 128)))
+@pytest.mark.parametrize("n_kind,b", [("ragged", 1), ("aligned", 64),
+                                      ("ragged", 128), ("aligned", 300)])
+def test_k2_unit_rows_every_block_n(cuda, block_n, n_kind, b):
+    """Unit bf16 rows at dim 1024 under a 5% mask, off the grid: candidates
+    within chip_smoke's tolerance, the top-10 rows identical outside
+    near-ties proven by rescoring (chip_smoke.check_k2)."""
+    import chip_smoke
+
+    n = 20 * block_n + (block_n // 3 + 1 if n_kind == "ragged" else 0)
+    chip_smoke.check_k2(cuda, n, b, 1024, "random", seed=block_n + b, reps=0,
+                        block_n=block_n, timed=False)
 
 
 def test_packed_dispatch_card_matches_cpu(cuda, monkeypatch):
     """The same corpus (carried by state_arrays/load_state) and the same
     packed batch on the card and on the CPU."""
-    from cadence_rag_tpu.config import settings
+    from cadence_rag_tpu_torch.config import settings
     from cadence_rag_tpu_torch.core.index import DeviceIndexManager
 
     import chip_smoke

@@ -192,3 +192,30 @@ def test_k3_plain_matches_pallas_interpret(k):
     # the keys plane orders exactly like the f32 plane
     keys = k3.tech_keys_plain(*map(_t, (q, tech, started, mask)))
     assert keys.dtype == torch.int64 and keys.shape == (b, n)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 16), (5000, 50), (1034, 50), (700, 64)])
+def test_k3_range_topks_give_the_lane(n, k):
+    """The kernel's decomposition, on the CPU: the top-k over each range's
+    top-k keys (``range_topk_plain``, what the kernel writes) is the top-k
+    of the whole key plane — ties in start seconds, ranges with more than k
+    matches, a short last range, and start seconds that read as -inf or as
+    a NaN below it included."""
+    from cadence_rag_tpu_torch.ops.topk import topk_from_keys
+
+    rng = np.random.default_rng(n + k)
+    tech, started, q, mask = _tech_from_featurize(rng, n, 6)
+    # a token held by the first third of the rows, asked for by two queries
+    tech[: n // 3, 0] = 12345
+    q[::3, 0] = 12345
+    started[rng.random(n) < 0.02] = -8388608
+    started[rng.random(n) < 0.02] = -5
+    args = [_t(x) for x in (q, tech, started, mask)]
+    cand = k3.range_topk_plain(*args, k)
+    assert cand.shape == (6, k3.n_candidates(n, k))
+    assert torch.equal(k3.range_topk(*args, k), cand)
+    got_v, got_i = topk_from_keys(cand, k)
+    want_v, want_i = k3.tech_topk_plain(_t(tech), _t(started), _t(q), _t(mask), k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert (torch.isfinite(want_v).sum(1) == k).any()

@@ -1,5 +1,7 @@
 """The port imports and serves with jax, pydantic, aiohttp and httpx
-unavailable — the software the machine with the card has.
+unavailable — the software the machine with the card has — and with the
+JAX package itself unavailable: the port keeps its own copies of the
+package's host modules.
 
 This runs in a subprocess: tests/conftest.py imports jax in this process.
 The subprocess imports every port module, then drives chip_smoke.py's
@@ -19,7 +21,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
-for name in ("jax", "jaxlib", "pydantic", "aiohttp", "httpx"):
+BLOCKED = ("jax", "jaxlib", "pydantic", "aiohttp", "httpx", "cadence_rag_tpu")
+for name in BLOCKED:
     sys.modules[name] = None
 
 import cadence_rag_tpu_torch
@@ -29,7 +32,7 @@ for info in pkgutil.walk_packages(cadence_rag_tpu_torch.__path__,
     importlib.import_module(info.name)
     modules.append(info.name)
 
-from cadence_rag_tpu.config import settings
+from cadence_rag_tpu_torch.config import settings
 settings.embeddings_dim = 64
 settings.lexical_dim = 512
 settings.index_initial_capacity = 256
@@ -45,8 +48,7 @@ recall = chip_smoke.run_recall(
     torch.device("cpu"), 8192, 16, 10, hnsw_n=1024, sweep_n=2048,
     sweep_rounds=1, cases=((1.0, "contiguous"), (0.05, "random")))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pydantic", "aiohttp",
-                                       "httpx") and sys.modules[m] is not None)
+                if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 print(json.dumps({"modules": modules, "loaded": loaded,
                   "modes": [summary[n]["modes"] for n in ("unscoped", "scoped")],
                   "capacity": index.chunks.capacity,
@@ -58,7 +60,6 @@ print(json.dumps({"modules": modules, "loaded": loaded,
 
 def test_port_runs_without_jax_pydantic_http():
     env = dict(os.environ)
-    env.pop("CADENCE_FORCE_PLATFORM", None)
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
@@ -80,6 +81,11 @@ def test_port_runs_without_jax_pydantic_http():
         "cadence_rag_tpu_torch.ops.ivf",
         "cadence_rag_tpu_torch.evals.ann_recall_gate",
         "cadence_rag_tpu_torch.evals.filtered_recall_sweep",
+        "cadence_rag_tpu_torch.config",
+        "cadence_rag_tpu_torch.ingest.featurize",
+        "cadence_rag_tpu_torch.embed.stub",
+        "cadence_rag_tpu_torch.native.rrf",
+        "cadence_rag_tpu_torch.native.hnsw",
     }
     assert expected <= set(out["modules"])
     # unscoped chunks plan ann, the scoped batch plans exact

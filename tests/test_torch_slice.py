@@ -12,6 +12,8 @@ top-1-per-group candidates) reach recall >= 0.95 against the JAX lanes
 (f32 sums of at most three terms).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from cadence_rag_tpu.core.index import DocRow as JaxDocRow
 from cadence_rag_tpu.core.index import get_index as jax_get_index
 from cadence_rag_tpu.embed import embed_texts
 from cadence_rag_tpu.ingest import featurize
+from cadence_rag_tpu_torch.config import settings as port_settings
 from cadence_rag_tpu_torch.core.index import DeviceIndexManager
 from cadence_rag_tpu_torch.ops.fusion import rrf_merge_rect
 
@@ -37,6 +40,26 @@ WORDS = [
     "replica", "shard", "index", "backfill", "timeout", "deadline", "owner",
 ]
 TECH = [f"srv-{i}" for i in range(30)] + [f"v2.{i}.1" for i in range(12)]
+
+
+@pytest.fixture
+def tmp_store(tmp_store, monkeypatch):
+    """conftest's store, with the port's settings (an object of its own)
+    given the values the JAX package's settings have there."""
+    for field in dataclasses.fields(port_settings):
+        monkeypatch.setattr(port_settings, field.name,
+                            getattr(tmp_store, field.name))
+    return tmp_store
+
+
+@pytest.fixture
+def set_both(monkeypatch):
+    """Set one setting in both packages, so that they compare the same
+    configuration."""
+    def put(name, value):
+        monkeypatch.setattr(settings, name, value)
+        monkeypatch.setattr(port_settings, name, value)
+    return put
 
 
 def _texts(rng, n):
@@ -169,11 +192,11 @@ def _check_fused(t_m, j_m):
 @pytest.mark.parametrize("mode", ["exact", "ann"])
 @pytest.mark.parametrize("fuse", [False, True])
 @pytest.mark.parametrize("dense", [True, False])
-def test_slice_small_corpus_identical(tmp_store, monkeypatch, mode, fuse, dense):
+def test_slice_small_corpus_identical(tmp_store, set_both, mode, fuse, dense):
     """At capacity 128 every K1 group holds one row, so even the port's
     approximate lanes are exact: everything must match the JAX package.
     ``dense=False`` is a batch without query embeddings (no provider)."""
-    monkeypatch.setattr(settings, "index_initial_capacity", 128)
+    set_both("index_initial_capacity", 128)
     rng, jidx, tidx, texts, tokens = _build(110, 70, seed=1)
     assert jidx.chunks.capacity == 128
     for scoped in (False, True):
