@@ -324,6 +324,30 @@ class CorpusIndex:
         if self.ivf is not None:
             self._ivf_append_overflow(np.arange(start, start + n, dtype=np.int32))
 
+    def position_of(self, doc_ids: Sequence[int]) -> np.ndarray:
+        """Row position per doc id, -1 for an id this corpus lacks."""
+        lookup = self._id_to_pos
+        return np.array([lookup.get(int(d), -1) for d in doc_ids], dtype=np.int32)
+
+    def set_embeddings(self, doc_ids: Sequence[int], vectors: np.ndarray) -> int:
+        """Backfill embeddings of existing rows (reference analogue: UPDATE
+        ... SET embedding, app/embedding_pipeline.py:149-168): one scatter
+        of the rows and one of their ``has_emb`` flags. Ids this corpus
+        lacks are skipped. -> rows written."""
+        with self.lock:
+            pos = self.position_of(doc_ids)
+            keep = pos >= 0
+            if not keep.any():
+                return 0
+            pos = pos[keep]
+            rows = np.asarray(vectors, dtype=np.float32)[keep]
+            idx = self._put(pos, torch.int64)
+            self.emb.index_copy_(0, idx, self._encode_emb(rows))
+            self.has_emb[idx] = True
+            self.emb_rows += int((~self.h_has_emb[pos]).sum())
+            self.h_has_emb[pos] = True
+            return int(pos.shape[0])
+
     # -- planning ---------------------------------------------------------
     def estimate_candidates(
         self,

@@ -1,10 +1,11 @@
 """ctypes binding for the native RRF group-merge core (``rrf.cpp``).
 
-Counterpart of ``cadence_rag_tpu/native/rrf.py`` (its two merge entry
-points). ``merge_groups`` and ``merge_rect_groups`` return the fused groups
-with the semantics of the numpy path in ``ops/fusion._merge_flat`` (same
-f64 accumulation order, same (plan, -score, first) order), or ``None`` when
-the library cannot be built, so callers take the numpy path.
+Counterpart of ``cadence_rag_tpu/native/rrf.py``. ``merge_groups`` and
+``merge_rect_groups`` return the fused groups with the semantics of the
+numpy path in ``ops/fusion._merge_flat`` (same f64 accumulation order, same
+(plan, -score, first) order), and ``ids_only_format`` renders a batch of
+ids_only responses; each returns ``None`` when the library cannot be built,
+so callers take the Python path.
 """
 
 from __future__ import annotations
@@ -50,6 +51,13 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int32,
             i32p, i64p, f64p, i8p,
         ]
+        lib.rrf_ids_only_format.restype = ctypes.c_int64
+        lib.rrf_ids_only_format.argtypes = [
+            i32p, i64p, f64p, ctypes.c_int64,
+            i32p, i64p, f64p, ctypes.c_int64,
+            ctypes.c_int32,
+            i32p, ctypes.c_char_p, ctypes.c_int64,
+        ]
         _lib = lib
         return _lib
 
@@ -91,6 +99,52 @@ def merge_groups(
     if m < 0:
         return None
     return out_plan[:m], out_doc[:m], out_score[:m], out_mask[:m]
+
+
+def ids_only_format(
+    a_plan: np.ndarray, a_doc: np.ndarray, a_score: np.ndarray,
+    c_plan: np.ndarray, c_doc: np.ndarray, c_score: np.ndarray,
+    n_plans: int,
+) -> Optional[Tuple[np.ndarray, list]]:
+    """Batched ids_only assembly: artifact + chunk fused groups (flat,
+    plan-major ascending — the merge cores' output order) ->
+    (counts (n_plans,) int32, flat list of "kind:id" strings in final
+    response order). Final ordering is the reference's ids_only sort
+    (-score, kind, id) with artifacts before chunks on score ties
+    (reference: app/retrieve.py:552-573). The strings materialize via one
+    ``bytes.split`` instead of one Python f-string per id. None if the
+    library is missing or the input is not plan-major (callers fall back
+    to per-plan assembly)."""
+    lib = _load()
+    if lib is None:
+        return None
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    a_plan = np.ascontiguousarray(a_plan, dtype=np.int32)
+    a_doc = np.ascontiguousarray(a_doc, dtype=np.int64)
+    a_score = np.ascontiguousarray(a_score, dtype=np.float64)
+    c_plan = np.ascontiguousarray(c_plan, dtype=np.int32)
+    c_doc = np.ascontiguousarray(c_doc, dtype=np.int64)
+    c_score = np.ascontiguousarray(c_score, dtype=np.float64)
+    total = int(a_doc.size + c_doc.size)
+    counts = np.zeros(max(int(n_plans), 1), dtype=np.int32)
+    # "artifact_chunk:" (15) + <=20 digits + '\n' <= 36 bytes per entry
+    cap = 40 * total + 16
+    buf = ctypes.create_string_buffer(cap)
+    written = int(lib.rrf_ids_only_format(
+        a_plan.ctypes.data_as(i32p), a_doc.ctypes.data_as(i64p),
+        a_score.ctypes.data_as(f64p), int(a_doc.size),
+        c_plan.ctypes.data_as(i32p), c_doc.ctypes.data_as(i64p),
+        c_score.ctypes.data_as(f64p), int(c_doc.size),
+        int(n_plans),
+        counts.ctypes.data_as(i32p), buf, cap,
+    ))
+    if written < 0:
+        return None
+    if written == 0:
+        return counts, []
+    return counts, buf.raw[: written - 1].decode("ascii").split("\n")
 
 
 def merge_rect_groups(

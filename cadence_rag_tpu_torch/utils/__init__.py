@@ -1,1 +1,2 @@
-"""Host utilities (counterpart of ``cadence_rag_tpu.utils``)."""
+"""Host utilities (counterpart of ``cadence_rag_tpu.utils``): the event log,
+API errors, time helpers and the reader-writer lock."""

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's /retrieve device path once on one CUDA card.
+"""Drive the PyTorch port's /retrieve path once on one CUDA card.
 
     python3 chip_smoke.py [--details PATH]
 
-Phases, each printing one line; any failure exits nonzero without the
+Phases, each printing a line or a few; any failure exits nonzero without the
 final result line:
 
 1. device  — require CUDA; print the card and ``nvidia-smi``'s name and
@@ -23,18 +23,38 @@ final result line:
              through ``query_both_packed_async`` -> ``collect_packed`` with
              device RRF, unscoped (chunks served "ann") and scoped ("exact").
              Each known row must come first; K1 and K3 must have launched.
-6. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
+6. serve   — the /retrieve request path: 1M chunks + 100k artifacts in the
+             process-wide index, matching rows in a temporary SQLite store,
+             16 known rows ingested and embedded through the ingest path,
+             and the port's aiohttp server on a localhost port, its client
+             in a process of its own. 128 concurrent requests a round:
+             (a) unique ids_only /retrieve, 2 cold then 20 warm rounds,
+             (b) evidence packs, (c) packs scoped to the known rows' call,
+             (d) /retrieve/batch of 128, (e) the known rows' queries. Fails on any response but 200, on (a),
+             (b) not planning ann or (c) not exact, on a batcher that never
+             coalesced, on a known row not first, on K1 or K3 launching no
+             time or missing from a torch.profiler window over one round of
+             (a). Prints p50/p99 latency and QPS per traffic, the engine's
+             timings, its host stages (the engine's own ``retrieve.<stage>``
+             spans), serial and pipelined engine QPS; then runs the real
+             gate (evals/real_gate.py) on the card against its floors, and
+             holds K1 and K3 against their plain versions at the shapes this
+             phase launched them with (from its dispatch log: per corpus,
+             K1 with and without the dense lane and each query tile, K3 at
+             each query width, at the smallest and largest batch served).
+             The kernels line's K1 and K3 launches are this phase's.
+7. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
              (a contiguous and a random 5% mask) and at a ragged 100,000
              rows, batch 64, with CUDA-event times beside the plain version
              and ``torch.matmul`` of the bf16 product; then every block
              size at 1M rows and ragged / aligned row counts at batch 1-300.
-7. recall  — the port's ANN recall gate in-process: modes ann, pallas (K2)
+8. recall  — the port's ANN recall gate in-process: modes ann, pallas (K2)
              and ivf at 1M rows, 64 queries, k 10, densities 1.0 and 0.003
              contiguous and 0.05 random; hnsw at 16,384 rows unfiltered;
              recall under 0.95 fails (ivf under a filter is printed, not
              held). Then the filtered-recall sweep at 1M rows. K2 must
              have launched.
-8. ivf     — ``build_ivf`` on phase 5's chunks, then one unscoped batch of
+9. ivf     — ``build_ivf`` on phase 5's chunks, then one unscoped batch of
              128 planned with ``dense_ivf_enabled``: the planner must choose
              ivf, IVF must serve the chunks' dense lane, and every known
              row must come first (host RRF, as device RRF is off).
@@ -48,10 +68,14 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
+import logging
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -242,7 +266,10 @@ def check_lane(kv, ki, pv, pi, lane, atol, threshold=None, *,
             "top_id_diffs": int((k_pos != p_pos).sum())}
 
 
-def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
+def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps, dense=True):
+    """``fused_scan`` against ``fused_scan_plain`` at one shape, both lanes
+    (or the lexical lane alone, ``dense`` False, as ``exact`` mode runs
+    it); with ``reps`` > 0 (dense only) also timed."""
     from cadence_rag_tpu_torch.ops.fused_scan import (
         fused_scan, fused_scan_plain, n_candidates,
     )
@@ -250,21 +277,32 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps):
 
     args = k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed)
     q_emb, q_lex, emb, lex, mask, has_emb = args
-    got = fused_scan(*args, dense=True)
+    got = fused_scan(*args, dense=dense)
     torch.cuda.synchronize()
-    want = fused_scan_plain(*args, dense=True)
+    want = fused_scan_plain(*args, dense=dense)
     nc = n_candidates(n)
-    if got[0].shape != (batch, nc) or want[0].shape != (batch, nc):
-        raise RuntimeError(f"candidate shape {tuple(got[0].shape)} != {(batch, nc)}")
+    if got[2].shape != (batch, nc) or want[2].shape != (batch, nc):
+        raise RuntimeError(f"candidate shape {tuple(got[2].shape)} != {(batch, nc)}")
+    lexical = check_lane(
+        got[2], got[3], want[2], want[3], (q_lex.float(), lex, 1.0, mask, n),
+        LEX_ATOL, LEX_MATCH_THRESHOLD)
+    if not dense:
+        del got, want, args
+        torch.cuda.empty_cache()
+        return {"n": n, "batch": batch, "emb_dtype": str(emb_dtype), "dense": None,
+                "lex": lexical, "max_abs_err": lexical["max_abs_err"]}
     scale = 1.0 / 127.0 if emb_dtype == torch.int8 else 1.0
     dense = check_lane(
         got[0], got[1], want[0], want[1],
         (q_emb.to(torch.bfloat16).float(), emb, scale,
          mask & has_emb[None, :], n), DENSE_ATOL)
-    lexical = check_lane(
-        got[2], got[3], want[2], want[3], (q_lex.float(), lex, 1.0, mask, n),
-        LEX_ATOL, LEX_MATCH_THRESHOLD)
     del got, want
+    if not reps:
+        del args
+        torch.cuda.empty_cache()
+        return {"n": n, "batch": batch, "emb_dtype": str(emb_dtype), "dense": dense,
+                "lex": lexical,
+                "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"])}
     ms = cuda_ms(lambda: fused_scan(*args, dense=True), reps)
     plain_ms = cuda_ms(lambda: fused_scan_plain(*args, dense=True), 1)
     lex_only_ms = cuda_ms(lambda: fused_scan(*args, dense=False), reps)
@@ -465,6 +503,61 @@ def check_k3(device, n, batch, slots, seed, reps):
             "timing": timing, "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "max_abs_err": 0.0}
+
+
+# -- K1 and K3 at the served path's shapes ------------------------------------
+def k1_tile(batch):
+    """The queries a K1 CTA holds, which picks its compiled instantiation
+    (csrc/fused_scan.cu ``launch_for_batch``)."""
+    return 64 if batch <= 64 else 128 if batch <= 128 else 256
+
+
+def served_cases(dispatched):
+    """The kernel shapes the served path launched, from the serve phase's
+    dispatch log: per corpus, K1's dense flag and query tile, and K3's
+    query width and K1's tile, each with the smallest and the largest
+    batch served. -> (K1 cases [(corpus, dense, batch)], K3 cases
+    [(corpus, width, batch)])"""
+    k1, k3 = {}, {}
+    for chunk_mode, artifact_mode, batch, dense_on, width in dispatched:
+        for corpus, mode in (("chunks", chunk_mode), ("artifacts", artifact_mode)):
+            k1.setdefault((corpus, dense_on and mode == "ann", k1_tile(batch)),
+                          set()).add(batch)
+            k3.setdefault((corpus, width, k1_tile(batch)), set()).add(batch)
+    return tuple(sorted({(key[0], key[1], b) for key, sizes in cases.items()
+                         for b in (min(sizes), max(sizes))})
+                 for cases in (k1, k3))
+
+
+def check_served_shapes(device, dispatched, corpora, seed):
+    """K1 (both lanes in ``ann``, the lexical lane alone in ``exact``) and
+    K3 against their plain versions at every served case of
+    ``served_cases``, on inputs of each corpus's device shape
+    (``corpora``: {corpus: rows, dim, lex_dim, slots, emb_dtype})."""
+    k1_cases, k3_cases = served_cases(dispatched)
+    k1, k3 = [], []
+    for i, (corpus, dense, batch) in enumerate(k1_cases):
+        c = corpora[corpus]
+        got = check_k1(device, c["rows"], batch, c["dim"], c["lex_dim"],
+                       c["emb_dtype"], seed=seed + i, reps=0, dense=dense)
+        k1.append({"corpus": corpus, "dense_lane": dense, **got})
+    for i, (corpus, width, batch) in enumerate(k3_cases):
+        c = corpora[corpus]
+        args = k3_inputs(device, c["rows"], batch, c["slots"], "smoke",
+                         seed + 100 + i, capacity=width // c["slots"])
+        k3.append({"corpus": corpus, "width": width, "batch": batch, "n": c["rows"],
+                   "finite": check_k3_case(*args, min(50, c["rows"]))})
+        del args
+    torch.cuda.empty_cache()
+    log("served shapes: K1 against its plain version at "
+        + ", ".join(f"{r['corpus']} {r['n']} rows batch {r['batch']} "
+                    f"{'dense+lexical' if r['dense_lane'] else 'lexical only'} "
+                    f"(|err| {r['max_abs_err']:.3g})" for r in k1)
+        + "; K3 bit-identical at "
+        + ", ".join(f"{r['corpus']} {r['n']} rows batch {r['batch']} width "
+                    f"{r['width']}" for r in k3))
+    return {"k1": k1, "k3": k3,
+            "k1_max_abs_err": max((r["max_abs_err"] for r in k1), default=0.0)}
 
 
 # -- K2 -----------------------------------------------------------------------
@@ -791,6 +884,455 @@ def run_main_path(device, n_chunks, n_artifacts, batch, n_known):
     return index, batches, summary
 
 
+# -- serve: the /retrieve request path over HTTP ------------------------------
+# the bench's request shapes (bench.py:170-175), one query text per request
+SERVE_TEMPLATES = (
+    "ECONNRESET rollback on the object store gateway build {}",
+    "tiering latency cluster retry budget shard {}",
+    "lenovo bake-off azure rollout phase {}",
+    "v2.3.{} gateway retry",
+)
+# known rows for the served path: each has tech tokens of its own (v3.i.7,
+# OPS-41xx), so its query's tech lane matches it alone
+SERVE_KNOWN_TEXT = ("incident {i}: kafka consumer lag on the gateway after the "
+                    "upgrade to v3.{i}.7, tracked in OPS-{t}")
+KERNEL_NAMES = {"fused_scan": "fused_scan_kernel", "tech_topk": "tech_topk_kernel"}
+GATE_FLOORS = {"mrr": 0.60, "recall@20": 0.80, "ndcg@10": 0.70}
+
+
+def unique_queries(n, salt):
+    """n query texts in the bench's shapes, unique across rounds (``salt``),
+    so no request coalesces with another."""
+    return [SERVE_TEMPLATES[i % 4].format(salt * 100_000 + i // 4) for i in range(n)]
+
+
+class DispatchLog:
+    """Records (chunk mode, artifact mode, batch, dense lane on, tech query
+    width) of every dispatch the engine makes through
+    ``index.query_both_packed_async``."""
+
+    def __init__(self, index):
+        self.calls = []
+        inner = index.query_both_packed_async
+
+        def recording(*args, **kw):
+            self.calls.append((kw["chunk_mode"], kw["artifact_mode"], args[2].shape[0],
+                               args[0] is not None, args[2].shape[1]))
+            return inner(*args, **kw)
+
+        index.query_both_packed_async = recording
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+class BatchSizes(logging.Handler):
+    """The batcher's ``retrieve.batched size=N`` records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.sizes = []
+
+    def emit(self, record):
+        if record.msg.startswith("retrieve.batched"):
+            self.sizes.append(int(record.args[0]))
+
+
+def start_server():
+    """The port's aiohttp app on a free localhost port, served from a
+    thread of its own. -> (port, stop)"""
+    from aiohttp import web
+
+    from cadence_rag_tpu_torch.serve.http import make_app
+
+    loop = asyncio.new_event_loop()
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.bind(("127.0.0.1", 0))
+    runner = web.AppRunner(make_app(), access_log=None)
+    ready = threading.Event()
+    failed = []
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(runner.setup())
+            loop.run_until_complete(web.SockSite(runner, sock).start())
+        except Exception as exc:  # reported by the caller
+            failed.append(exc)
+            ready.set()
+            return
+        ready.set()
+        loop.run_forever()
+        loop.run_until_complete(runner.cleanup())
+        loop.close()
+
+    thread = threading.Thread(target=run, name="serve", daemon=True)
+    thread.start()
+    if not ready.wait(60) or failed:
+        raise RuntimeError(f"the server did not start: {failed}")
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        sock.close()
+        if thread.is_alive():
+            raise RuntimeError("the server thread did not stop")
+
+    return sock.getsockname()[1], stop
+
+
+# the HTTP client, run in a process of its own so that it does not share the
+# server's interpreter lock: argv = port, path, requests file, results file;
+# the requests file holds one list of bodies per round
+HTTP_CLIENT = r"""
+import asyncio, json, sys, time
+import aiohttp
+
+port, path, src, dst = sys.argv[1:5]
+url = f"http://127.0.0.1:{port}{path}"
+with open(src) as f:
+    rounds = json.load(f)
+
+async def one(session, body):
+    t0 = time.perf_counter()
+    async with session.post(url, json=body) as resp:
+        data = await resp.json()
+        return resp.status, time.perf_counter() - t0, data
+
+async def go():
+    out = []
+    async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=0)) as session:
+        for bodies in rounds:
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(one(session, b) for b in bodies))
+            out.append((time.perf_counter() - t0, res))
+    return out
+
+with open(dst, "w") as f:
+    json.dump(asyncio.run(go()), f)
+"""
+
+
+def http_rounds(port, path, bodies_of_round, rounds, workdir):
+    """Send each round's bodies concurrently from a client process over one
+    session. -> [(round wall s, [(status, latency s, response)])]"""
+    src, dst = workdir / "requests.json", workdir / "responses.json"
+    src.write_text(json.dumps([bodies_of_round(r) for r in range(rounds)]))
+    proc = subprocess.run([sys.executable, "-c", HTTP_CLIENT, str(port), path,
+                           str(src), str(dst)], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"HTTP client failed: {proc.stderr[-2000:]}")
+    out = json.loads(dst.read_text())
+    bad = [(s, d) for _w, res in out for s, _l, d in res if s != 200]
+    if bad:
+        raise RuntimeError(f"{path}: {len(bad)} responses not 200, e.g. {bad[0]}")
+    return out
+
+
+def round_stats(rounds, per_call=1):
+    """Latency percentiles of every request and QPS over the rounds
+    (``per_call`` requests answered by each call)."""
+    lat = np.array([l for _w, res in rounds for _s, l, _d in res]) * 1e3
+    wall = sum(w for w, _res in rounds)
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "qps": per_call * lat.size / wall, "requests": per_call * int(lat.size)}
+
+
+def ingest_known_rows(n_known):
+    """One call whose transcript holds the known texts, one chunk each,
+    through the ingest path, plus an analysis artifact; then the backfill
+    embeds that call's rows. -> (call_id, texts, chunk ids)"""
+    from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
+    from cadence_rag_tpu_torch.ingest.ingest import ingest_analysis, ingest_transcript
+    from cadence_rag_tpu_torch.schemas import (
+        AnalysisArtifactIn, CallRef, ChunkingOptions, UtteranceIn,
+    )
+    from cadence_rag_tpu_torch.store.db import get_store
+
+    texts = [SERVE_KNOWN_TEXT.format(i=i, t=4100 + i) for i in range(n_known)]
+    call_id, _n_utt, n_chunks = ingest_transcript(
+        CallRef(external_id="smoke-known", title="known rows"),
+        [UtteranceIn(speaker="Ana", start_ts_ms=i * 1000, end_ts_ms=i * 1000 + 900,
+                     text=t) for i, t in enumerate(texts)],
+        ChunkingOptions(target_tokens=8, max_tokens=400, overlap_tokens=0))
+    if n_chunks != n_known:
+        raise RuntimeError(f"known rows: {n_chunks} chunks for {n_known} texts")
+    ingest_analysis(CallRef(call_id=call_id), [AnalysisArtifactIn(
+        kind="summary", content="Known rows for the served path's checks.")])
+    run_embedding_backfill(batch_size=64, call_id=call_id, source="chip_smoke")
+    with get_store().read() as conn:
+        ids = [int(r["chunk_id"]) for r in conn.execute(
+            "SELECT chunk_id FROM chunks WHERE call_id = ? ORDER BY chunk_id",
+            (call_id,)).fetchall()]
+    return call_id, texts, ids
+
+
+def engine_split(payloads_of_rep, reps):
+    """The engine's own ``retrieve.<stage>`` spans (engine/retrieve.py, in
+    the event ring) over ``reps`` calls of ``retrieve_evidence_batch``
+    after a warm one. -> {stage: mean ms}"""
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
+    from cadence_rag_tpu_torch.utils import events
+
+    retrieve_evidence_batch(payloads_of_rep(0))
+    events.enable()
+    try:
+        for rep in range(1, reps + 1):
+            retrieve_evidence_batch(payloads_of_rep(rep))
+        spans = events.drain()
+    finally:
+        events.disable()
+    stages = {}
+    for ev in spans:
+        if ev["tag"].startswith("retrieve.") and "s" in ev:
+            stages.setdefault(ev["tag"][len("retrieve."):], []).append(ev["s"] * 1e3)
+    return {name: float(np.mean(ms)) for name, ms in stages.items()}
+
+
+def engine_qps(payloads_of_rep, iters, depth=None):
+    """``retrieve_evidence_batch`` serially, or ``retrieve_evidence_pipelined``
+    at ``depth``, as bench.py:205-266 measures -> QPS."""
+    from cadence_rag_tpu_torch.engine.retrieve import (
+        retrieve_evidence_batch, retrieve_evidence_pipelined,
+    )
+
+    batches = [payloads_of_rep(r) for r in range(iters)]
+    retrieve_evidence_batch(batches[0])
+    t0 = time.perf_counter()
+    if depth is None:
+        n = sum(len(retrieve_evidence_batch(b)) for b in batches)
+    else:
+        n = sum(len(out) for out in retrieve_evidence_pipelined(batches, depth=depth))
+    return n / (time.perf_counter() - t0)
+
+
+def kernel_device_ms(prof):
+    """{kernel key: device ms} of every kernel row of a profile."""
+    rows = {}
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0 and not e.key.startswith(("aten::", "cuda")):
+            rows[e.key] = rows.get(e.key, 0.0) + dt / 1e3
+    return rows
+
+
+def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
+              warm_rounds=20, bench_iters=10, profile=True, window_ms=5):
+    """The port's /retrieve request path: an index of ``n_chunks`` +
+    ``n_artifacts`` synthetic rows on ``device`` with matching rows in a
+    temporary SQLite store, the known rows ingested and embedded through
+    the ingest path, and the port's aiohttp server in this process, the
+    client in a process of its own. Traffic:
+    (a) ``concurrency`` concurrent unique ids_only POST /retrieve, cold then
+    warm rounds; (b) the same as evidence packs; (c) evidence packs scoped
+    to the known rows' call; (d) POST /retrieve/batch of ``concurrency``;
+    (e) the known rows' own queries. Checks: no response but 200; (a), (b)
+    plan ann and (c) exact; the batcher coalesced; every known row first;
+    with ``profile``, K1 and K3 in a torch.profiler window over one round
+    of (a). Then the engine's host split, serial and pipelined QPS, and
+    the real gate on ``device``. -> summary"""
+    import shutil
+    import tempfile
+
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.evals.synth import (
+        bulk_store_rows, install_synthetic_corpus,
+    )
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
+    from cadence_rag_tpu_torch.serve.api import startup
+    from cadence_rag_tpu_torch.store.db import get_store, reset_store
+
+    device = torch.device(device)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    overrides = {"store_path": str(workdir / "serve.db"),
+                 "embeddings_provider": "stub", "embeddings_base_url": "",
+                 "retrieve_batch_window_ms": window_ms, "store_sync_interval_s": 0.0,
+                 "log_level": "WARNING"}
+    saved = {key: getattr(settings, key) for key in overrides}
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    batcher_log = logging.getLogger("cadence_rag_tpu_torch.serve.batcher")
+    sizes = BatchSizes()
+    batcher_log.addHandler(sizes)
+    batcher_log.setLevel(logging.INFO)
+    batcher_log.propagate = False
+    stop = None
+    summary = {}
+    try:
+        setup = {}
+        t0 = time.perf_counter()
+        reset_store()
+        core_index.reset_index()
+        index = core_index.get_index(device)
+        index.ensure_call_capacity(N_CALLS)
+        install_synthetic_corpus(index.chunks, n_chunks, N_CALLS, seed=0)
+        install_synthetic_corpus(index.artifacts, n_artifacts, N_CALLS, seed=1)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        setup["index"] = time.perf_counter() - t0
+        with get_store().read() as conn:
+            # a page cache that holds the bulk rows' transaction: pages are
+            # written once at commit, not spilled to the log as it fills
+            conn.execute("PRAGMA cache_size = -1048576")
+        bulk_store_rows(get_store(), n_chunks, n_artifacts, N_CALLS)
+        setup["store rows"] = time.perf_counter() - t0 - sum(setup.values())
+        known_call, known_texts, known_ids = ingest_known_rows(N_KNOWN)
+        setup["known rows"] = time.perf_counter() - t0 - sum(setup.values())
+        startup(device)
+        dispatches = DispatchLog(index)
+        port, stop = start_server()
+        setup["startup + server"] = time.perf_counter() - t0 - sum(setup.values())
+        summary["setup_s"] = time.perf_counter() - t0
+        summary["setup_split_s"] = setup
+
+        fused_scan.launches = 0
+        range_topk.launches = 0
+        ids_only = lambda r: [{"query": q, "return_style": "ids_only"}
+                              for q in unique_queries(concurrency, r)]
+        packs = lambda r: [{"query": q} for q in unique_queries(concurrency, r)]
+        scoped = lambda r: [{"query": f"{known_texts[i % N_KNOWN]} round {r} q{i}",
+                             "filters": {"call_ids": [known_call]}}
+                            for i in range(concurrency)]
+        phases = {}
+        salt = 0
+
+        def traffic(name, path, make, rounds, per_call=1):
+            nonlocal salt
+            base = salt
+            salt += rounds
+            dispatches.take()
+            del sizes.sizes[:]
+            out = http_rounds(port, path, lambda r: make(base + r), rounds, workdir)
+            phases[name] = {"dispatches": dispatches.take(),
+                            "batched": list(sizes.sizes)}
+            return out
+
+        traffic("a_cold", "/retrieve", ids_only, cold_rounds)
+        a = traffic("a", "/retrieve", ids_only, warm_rounds)
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                round_s = traffic("a_profiled", "/retrieve", ids_only, 1)[0][0]
+                torch.cuda.synchronize()
+            kernels = kernel_device_ms(prof)
+            seen = {name: sum(ms for key, ms in kernels.items() if needle in key)
+                    for name, needle in KERNEL_NAMES.items()}
+            # the server is idle outside the round: its kernels over its wall
+            summary["profiled_round"] = {
+                "wall_ms": round_s * 1e3, "kernel_ms": sum(kernels.values()),
+                "busy_share": sum(kernels.values()) / (round_s * 1e3),
+                "k1_ms": seen["fused_scan"], "k3_ms": seen["tech_topk"],
+                "top": sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
+            if min(seen.values()) <= 0:
+                raise RuntimeError(f"the profiled round shows no K1 or K3: {seen}")
+        traffic("b_cold", "/retrieve", packs, 1)
+        b = traffic("b", "/retrieve", packs, warm_rounds)
+        c = traffic("c", "/retrieve", scoped, warm_rounds)
+        d = traffic("d", "/retrieve/batch", lambda r: [ids_only(r)], warm_rounds)
+        e = traffic("e", "/retrieve", lambda r: [
+            {"query": t, "return_style": "ids_only"} for t in known_texts], 1)
+        # launches of the kernels on the served path (the CPU runs their
+        # plain versions and counts none)
+        launches = {"fused_scan": fused_scan.launches, "tech_topk": range_topk.launches}
+        stop()
+        stop = None
+
+        # checks
+        want = [f"chunk:{i}" for i in known_ids]
+        got = [res[2]["retrieved_ids"][:1] for res in e[0][1]]
+        wrong = [(w, g) for w, g in zip(want, got) if g != [w]]
+        if wrong:
+            raise RuntimeError(f"known rows not first: {len(wrong)}, e.g. {wrong[0]}")
+        for _w, res in c:
+            for i, (_s, _l, data) in enumerate(res):
+                top = data["quotes"][0]["chunk_id"] if data["quotes"] else None
+                if top != known_ids[i % N_KNOWN]:
+                    raise RuntimeError(f"scoped: known row not first: {top}")
+        planned = {"a": {"ann"}, "b": {"ann"}, "c": {"exact"}, "d": {"ann"},
+                   "e": {"ann"}}
+        for name, modes in planned.items():
+            got_modes = {m for cm, am, *_ in phases[name]["dispatches"] for m in (cm, am)}
+            if got_modes != modes:
+                raise RuntimeError(f"({name}) dispatched {got_modes}, not {modes}")
+        for name, rounds, mode in (("b", b, "ann"), ("c", c, "exact")):
+            notes = {tuple(d_["notes"]["retrieval"]["dense_modes"].values())
+                     for _w, res in rounds for _s, _l, d_ in res}
+            if notes != {(mode, mode)}:
+                raise RuntimeError(f"({name}) notes.dense_modes {notes}")
+        empty = sum(not d_["quotes"] for _w, res in b for _s, _l, d_ in res)
+        if empty:
+            raise RuntimeError(f"(b) {empty} evidence packs without quotes")
+        coalesced = max((size for name in "abcde" for size in phases[name]["batched"]),
+                        default=0)
+        if coalesced <= 1:
+            raise RuntimeError("the batcher never coalesced requests")
+        timings = [d_["notes"]["retrieval"]["timings_ms"]
+                   for _w, res in b for _s, _l, d_ in res]
+        summary.update(
+            launches=launches, known_first=len(want),
+            a=round_stats(a), b=round_stats(b), c=round_stats(c),
+            d=round_stats(d, per_call=concurrency),
+            batch_sizes={name: sorted(set(b_ for _cm, _am, b_, *_ in ph["dispatches"]))
+                         for name, ph in phases.items()},
+            dispatched=sorted({d_ for ph in phases.values() for d_ in ph["dispatches"]}),
+            corpora={name: {"rows": corpus.capacity, "dim": corpus.dim,
+                            "lex_dim": corpus.lex_dim, "slots": corpus.tech.shape[1],
+                            "emb_dtype": corpus.emb_dtype}
+                     for name, corpus in (("chunks", index.chunks),
+                                          ("artifacts", index.artifacts))},
+            batched_max=coalesced,
+            engine_timings_ms={key: float(np.mean([t[key] for t in timings]))
+                               for key in ("embed_ms", "device_ms", "pack_ms",
+                                           "device_batch")})
+
+        # the engine in-process: host split, serial and pipelined QPS
+        reqs = lambda style: (lambda r: [
+            RetrieveRequest(query=q, return_style=style)
+            for q in unique_queries(concurrency, 10_000 + r)])
+        summary["split_ids_only"] = engine_split(reqs("ids_only"), 5)
+        summary["split_packs"] = engine_split(reqs("evidence_pack_json"), 5)
+        summary["split_scoped"] = engine_split(lambda r: [
+            RetrieveRequest.model_validate(body) for body in scoped(10_000 + r)], 5)
+        summary["engine_qps"] = {
+            f"{style} {'serial' if depth is None else f'depth {depth}'}":
+                engine_qps(reqs(style), bench_iters, depth)
+            for style in ("ids_only", "evidence_pack_json")
+            for depth in (None, 2, 3)}
+    finally:
+        if stop is not None:
+            stop()
+        batcher_log.removeHandler(sizes)
+        batcher_log.propagate = True
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        core_index.reset_index()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    from cadence_rag_tpu_torch.evals.real_gate import run_gate
+
+    outcome = run_gate(device=device)
+    summary["gate"] = outcome["metrics"]
+    low = {k: outcome["metrics"][k] for k, floor in GATE_FLOORS.items()
+           if outcome["metrics"][k] < floor}
+    if low or outcome["failures"]:
+        raise RuntimeError(f"real gate under its floors: {low} {outcome['failures']}")
+    return summary
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", type=Path, default=None,
@@ -858,6 +1400,39 @@ def main(argv=None) -> int:
             for name, *_ in batches)
         + f"; every known row first; launches {launches}")
 
+    serve = run_serve(device, 1_000_000, 100_000)
+    details["serve"] = serve
+    if min(serve["launches"].values()) <= 0:
+        raise RuntimeError(f"the served path did not launch K1 and K3: {serve['launches']}")
+    prof = serve["profiled_round"]
+    log(f"serve: 1M chunks + 100k artifacts, store rows and {N_KNOWN} known rows "
+        f"ingested, set up in {serve['setup_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in serve["setup_split_s"].items())
+        + f"); {smi}; HTTP from a client process, 128 concurrent: "
+        + "; ".join(
+            f"({name}) {what} p50 {serve[name]['p50_ms']:.1f} ms p99 "
+            f"{serve[name]['p99_ms']:.1f} ms {serve[name]['qps']:.0f} QPS"
+            for name, what in (("a", "ids_only ann"), ("b", "packs ann"),
+                               ("c", "packs scoped exact"),
+                               ("d", "/retrieve/batch of 128 per call")))
+        + f"; batches {serve['batch_sizes']}; engine timings (b) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in serve["engine_timings_ms"].items())
+        + f"; every known row first; launches {serve['launches']}; profiled round "
+        f"of (a): K1 {prof['k1_ms']:.2f} ms, K3 {prof['k3_ms']:.2f} ms, kernels "
+        f"{prof['kernel_ms']:.1f} of {prof['wall_ms']:.1f} ms wall")
+    log("serve engine, batch 128 (ms, the engine's stage spans): ids_only "
+        + ", ".join(f"{k} {v:.2f}" for k, v in serve["split_ids_only"].items())
+        + " | packs " + ", ".join(f"{k} {v:.2f}" for k, v in serve["split_packs"].items())
+        + " | scoped packs " + ", ".join(
+            f"{k} {v:.2f}" for k, v in serve["split_scoped"].items())
+        + " | QPS " + ", ".join(f"{k} {v:.0f}" for k, v in serve["engine_qps"].items()))
+    log("gate (real, fixtures, on the card): " + ", ".join(
+        f"{k} {serve['gate'][k]:.4f} (floor {floor})" for k, floor in GATE_FLOORS.items()))
+    details["served_shapes"] = check_served_shapes(
+        device, serve["dispatched"], serve["corpora"], seed=20)
+    k1_err = max(details["k1"]["max_abs_err"], details["k1_ragged_int8"]["max_abs_err"],
+                 details["served_shapes"]["k1_max_abs_err"])
+
     details["k2"] = check_k2(device, 1_048_576, 128, 1024, "contiguous", seed=4, reps=5)
     details["k2_random"] = check_k2(device, 1_048_576, 128, 1024, "random",
                                     seed=5, reps=5)
@@ -909,13 +1484,13 @@ def main(argv=None) -> int:
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
-         "launches": launches["fused_scan"], "max_abs_err": k1["max_abs_err"],
+         "launches": serve["launches"]["fused_scan"], "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "tech_topk", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
-         "launches": launches["tech_topk"], "max_abs_err": k3["max_abs_err"],
+         "launches": serve["launches"]["tech_topk"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
         {"name": "dense_scan", "route": "cuda",

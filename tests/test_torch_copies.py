@@ -244,3 +244,172 @@ def test_native_libraries_build_into_the_build_dir():
     lib = library_path(Path(trrf.__file__).with_name("rrf.cpp"), ("-O3",))
     assert lib.parent == NATIVE_DIR and lib.is_file()
     assert "build" in NATIVE_DIR.parts
+
+
+# -- the request path's host modules ------------------------------------------------
+VERBATIM = [
+    "schemas/__init__.py", "schemas/common.py", "schemas/calls.py",
+    "schemas/ingest.py", "schemas/retrieve.py", "schemas/responses.py",
+    "utils/timeutil.py", "utils/errors.py", "utils/locks.py", "logging_utils.py",
+    "evals/metrics.py", "evals/fixtures.py", "serve/metrics.py",
+]
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copies(path):
+    """Modules the port copies unchanged: the same text."""
+    port = (REPO / "cadence_rag_tpu_torch" / path).read_text()
+    assert port == (REPO / "cadence_rag_tpu" / path).read_text()
+
+
+def test_chunking_matches():
+    from cadence_rag_tpu.ingest import chunking as jchunk
+    from cadence_rag_tpu.schemas import ChunkingOptions as JOpts, UtteranceIn as JUtt
+    from cadence_rag_tpu_torch.ingest import chunking as tchunk
+    from cadence_rag_tpu_torch.schemas import ChunkingOptions as TOpts, UtteranceIn as TUtt
+
+    texts = _texts(11, 50) + [
+        "see https://x.io/a and 10.2.0.15, OPS-1842, EPIPE, HTTP 503, ORA-00600",
+        "v2.3.1 deadbeefcafe /runbooks/cloud bill of materials vs dell azure aws",
+        "- item one\n- item two\n\n1. first\n2) second\n\nplain paragraph"]
+    for t in texts:
+        assert tchunk.extract_tech_tokens(t) == jchunk.extract_tech_tokens(t)
+        assert tchunk.count_tokens(t) == jchunk.count_tokens(t)
+        for kind in ("action_items", "summary"):
+            assert ([dataclasses.asdict(c) for c in tchunk.build_artifact_chunks(kind, t)]
+                    == [dataclasses.asdict(c) for c in jchunk.build_artifact_chunks(kind, t)])
+    rng = np.random.default_rng(12)
+    for opts in ((30, 60, 5), (8, 20, 0), (25, 50, 4)):
+        rows = [dict(speaker=["A", "B", None][i % 3], start_ts_ms=i * 1000,
+                     end_ts_ms=i * 1000 + 900, text=texts[int(rng.integers(len(texts)))])
+                for i in range(20)]
+        utts = [jchunk.Utterance(utterance_id=i + 1, speaker=r["speaker"], speaker_id=None,
+                                 start_ts_ms=r["start_ts_ms"], end_ts_ms=r["end_ts_ms"],
+                                 confidence=None, text=r["text"],
+                                 token_count=jchunk.count_tokens(r["text"]))
+                for i, r in enumerate(rows)]
+        tutts = [tchunk.Utterance(**dataclasses.asdict(u)) for u in utts]
+        jo, to = JOpts(**dict(zip(("target_tokens", "max_tokens", "overlap_tokens"), opts))), \
+            TOpts(**dict(zip(("target_tokens", "max_tokens", "overlap_tokens"), opts)))
+        assert ([dataclasses.asdict(c) for c in tchunk.build_chunks(tutts, to)]
+                == [dataclasses.asdict(c) for c in jchunk.build_chunks(utts, jo)])
+        assert (tchunk.transcript_hash([TUtt(**r) for r in rows], to)
+                == jchunk.transcript_hash([JUtt(**r) for r in rows], jo))
+    assert tchunk.PIPELINE_VERSION == jchunk.PIPELINE_VERSION
+
+
+def test_native_ids_only_format_matches():
+    rng = np.random.default_rng(13)
+    n_plans = 30
+
+    def groups(n, kinds):
+        plan = np.sort(rng.integers(0, n_plans, size=n)).astype(np.int32)
+        doc = rng.integers(1, 10**12, size=n).astype(np.int64)
+        score = rng.choice([1 / 61, 1 / 62, 2 / 61, 1 / 61 + 1 / 70], size=n)
+        return plan, doc, score
+
+    a, c = groups(400, 0), groups(2000, 1)
+    got = trrf.ids_only_format(*a, *c, n_plans)
+    want = jrrf.ids_only_format(*a, *c, n_plans)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] and len(got[1]) == 2400
+    # not plan-major: both refuse
+    bad = (a[0][::-1].copy(),) + a[1:]
+    assert trrf.ids_only_format(*bad, *c, n_plans) is None
+    assert jrrf.ids_only_format(*bad, *c, n_plans) is None
+
+
+def test_featurize_single_text_api_matches():
+    for text in _texts(14, 30):
+        for a, b in zip(tfeaturize.lexical_signature(text, 11.0),
+                        jfeaturize.lexical_signature(text, 11.0)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(tfeaturize.query_lexical_features(text),
+                        jfeaturize.query_lexical_features(text)):
+            np.testing.assert_array_equal(a, b)
+    for toks in _token_lists(15, 30):
+        a, b = tfeaturize.query_tech_structure(toks), jfeaturize.query_tech_structure(toks)
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+    assert tfeaturize.active_vocab() == (None, 0) == jfeaturize.active_vocab()
+    tfeaturize.set_active_vocab(None, 0)
+    with pytest.raises(NotImplementedError, match="vocab"):
+        tfeaturize.set_active_vocab(np.arange(1, 5, dtype=np.uint64), 1)
+
+
+@pytest.mark.parametrize("cache", [0, 64])
+def test_embed_facade_matches(monkeypatch, cache):
+    from cadence_rag_tpu.embed import provider as jprov
+    from cadence_rag_tpu.embed.pipeline import infer_batch_size_limit as jlimit
+    from cadence_rag_tpu_torch.embed import provider as tprov
+    from cadence_rag_tpu_torch.embed.pipeline import infer_batch_size_limit as tlimit
+
+    for s in (tconfig.settings, jconfig.settings):
+        monkeypatch.setattr(s, "embeddings_dim", 64)
+        monkeypatch.setattr(s, "embeddings_provider", "stub")
+        monkeypatch.setattr(s, "embed_cache_size", cache)
+    tprov.reset_embed_cache()
+    jprov.reset_embed_cache()
+    texts = [t for t in _texts(16, 40) if t.strip()]
+    for _ in range(2):
+        got, want = tprov.embed_texts(texts), jprov.embed_texts(texts)
+        np.testing.assert_array_equal(got.vectors, want.vectors)
+        assert got.model == want.model
+    np.testing.assert_array_equal(tprov.embed_texts_batched(texts, 7).vectors,
+                                  jprov.embed_texts_batched(texts, 7).vectors)
+    with pytest.raises(tprov.EmbeddingError):
+        tprov.embed_texts(["  "])
+    for msg in ("max batch size <= 8", "Maximum batch size is 16", "nope", ""):
+        assert tlimit(msg) == jlimit(msg)
+    for kind in tprov.NOT_PORTED_PROVIDERS:
+        monkeypatch.setattr(tconfig.settings, "embeddings_provider", kind)
+        with pytest.raises(RuntimeError, match="not ported"):
+            tprov.get_provider()
+    tprov.reset_embed_cache()
+    jprov.reset_embed_cache()
+
+
+def test_a_store_file_opens_in_both(tmp_path):
+    """The same migrations: a store the JAX package wrote opens in the
+    port, and the port's rows read back in the JAX package."""
+    from cadence_rag_tpu.store.db import MIGRATIONS as JMIG, SCHEMA_VERSION as JVER
+    from cadence_rag_tpu.store.db import Store as JStore
+    from cadence_rag_tpu_torch.evals.synth import bulk_store_rows
+    from cadence_rag_tpu_torch.store.db import MIGRATIONS, SCHEMA_VERSION, Store
+
+    assert MIGRATIONS == JMIG and SCHEMA_VERSION == JVER
+    path = str(tmp_path / "shared.db")
+    JStore(path).close()
+    store = Store(path)
+    assert store.validate_versions()[0]
+    info = store.fetch_info()
+    assert info["schema_version"] == SCHEMA_VERSION and "torch_version" in info
+    bulk_store_rows(store, 50, 7, 4)
+    store.close()
+    jstore = JStore(path)
+    with jstore.read() as conn:
+        counts = [conn.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                  for t in ("calls", "chunks", "artifact_chunks")]
+    jstore.close()
+    assert counts == [4, 50, 7]
+
+
+def test_bulk_store_rows_match(tmp_path):
+    from cadence_rag_tpu.evals.synth import bulk_store_rows as jbulk
+    from cadence_rag_tpu.store.db import Store as JStore
+    from cadence_rag_tpu_torch.evals.synth import bulk_store_rows as tbulk
+    from cadence_rag_tpu_torch.store.db import Store
+
+    dumps = []
+    for bulk, store_cls, name in ((tbulk, Store, "p.db"), (jbulk, JStore, "j.db")):
+        store = store_cls(str(tmp_path / name))
+        ids = bulk(store, 120, 30, 9)
+        with store.read() as conn:
+            # every column but the insert time
+            dumps.append((ids, [
+                [{k: r[k] for k in r.keys() if k != "call_started_at"}
+                 for r in conn.execute(f"SELECT * FROM {t} ORDER BY 1").fetchall()]
+                for t in ("chunks", "artifact_chunks")]))
+        store.close()
+    assert dumps[0] == dumps[1]

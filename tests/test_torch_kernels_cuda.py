@@ -300,3 +300,53 @@ def test_packed_dispatch_card_matches_cpu(cuda, monkeypatch):
                             assert (c == a).mean() > 0.99
             if fuse:
                 chip_smoke.check_first(outs[1], expected, "card")
+
+
+def test_served_fixture_corpus_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The fixture corpus ingested and served through ``serve.testing`` on
+    the card and on the CPU, each with a store of its own: the gold
+    queries give identical ``retrieved_ids`` and evidence packs."""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import reset_index
+    from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
+    from cadence_rag_tpu_torch.evals.fixtures import GOLD_QUERIES, ingest_fixtures
+    from cadence_rag_tpu_torch.serve.testing import TestClient
+    from cadence_rag_tpu_torch.store.db import reset_store
+
+    import itertools
+    from datetime import datetime, timedelta, timezone
+
+    from cadence_rag_tpu_torch.ingest import ingest
+
+    monkeypatch.setattr(settings, "embeddings_provider", "stub")
+    monkeypatch.setattr(settings, "embeddings_base_url", "")
+    monkeypatch.setattr(settings, "store_sync_interval_s", 0.0)
+    monkeypatch.setattr(settings, "index_initial_capacity", 256)
+    served = {}
+    try:
+        for device in ("cuda", "cpu"):
+            # the same call start seconds on both runs: the tech lane ranks
+            # by recency
+            ticks = itertools.count()
+            monkeypatch.setattr(ingest, "now_utc", lambda: datetime(
+                2025, 6, 1, tzinfo=timezone.utc) + timedelta(seconds=next(ticks)))
+            monkeypatch.setattr(settings, "store_path", str(tmp_path / f"{device}.db"))
+            reset_store()
+            reset_index()
+            client = TestClient(device=device)
+            ingest_fixtures()
+            run_embedding_backfill(batch_size=16)
+            out = []
+            for style in ("ids_only", "evidence_pack_json"):
+                resp = client.post("/retrieve/batch", json=[
+                    {"query": q, "return_style": style} for _i, q, _n in GOLD_QUERIES])
+                assert resp.status_code == 200, resp.json()
+                out.append([r.get("retrieved_ids") or
+                            [e["evidence_id"] for e in r["artifacts"] + r["quotes"]]
+                            for r in resp.json()["results"]])
+            served[device] = out
+    finally:
+        reset_store()
+        reset_index()
+    assert all(ids for ids in served["cuda"][0])
+    assert served["cuda"] == served["cpu"]
