@@ -8,15 +8,33 @@ presence) plus host mirrors of the per-row scalars for id mapping and
 planning.
 
 What changes from JAX: tensors are updated in place (an insert writes its
-rows into the existing buffers; growth reallocates at double capacity and
-copies), and the device program runs eagerly on PyTorch's current stream.
-Enqueued reads of a buffer are ordered before any later in-place write on
-that stream, so the corpus locks only need to cover capturing the tensors
-and enqueuing the program. The chunks corpus may carry an IVF index
-(``build_ivf``, single process): the planner's "ivf" mode serves the dense
-lane from it in a dispatch of its own, beside the packed program. Not
-ported here: the cold tier, growth prewarm/migration, deletes/compaction,
-the multi-host op-log and the gang IVF build.
+rows into the existing buffers, a delete fills its rows' ``started`` and
+``has_emb`` entries, a backfill scatters rows; growth and compaction
+reallocate and copy), and the device program runs eagerly on PyTorch's
+current stream. The chunks corpus may carry an IVF index (``build_ivf``,
+single process): the planner's "ivf" mode serves the dense lane from it in
+a dispatch of its own, beside the packed program. Not ported here: the cold
+tier, growth prewarm/migration, the multi-host op-log and the gang IVF
+build.
+
+Stream order. JAX arrays are immutable, so a queued program keeps the
+inputs it was given; here every writer (the batcher's engine thread, an
+HTTP handler's ``delete_call``, the store syncer's thread) mutates the
+tensors a queued program reads. What keeps that safe: every thread enqueues
+on the device's default stream, and every reader and writer takes the
+corpus lock around capturing the tensors and enqueuing its work, so a
+tombstone, a scatter or a compaction lands after the programs queued before
+it and before those queued after. A buffer dropped by growth or compaction
+is freed to PyTorch's caching allocator, which hands it out again only to
+work queued later on the same stream. No write path stages through a reused
+pinned buffer: ``_put`` copies from pageable memory (the host waits for the
+copy), and ``_stage`` pins a fresh buffer per call. The host mirrors are
+written in place only at positions no dispatch in flight can name (rows
+past its ``count``) or in fields it does not read (``h_started``,
+``h_has_emb``); compaction, which renumbers rows, replaces the mirrors with
+new arrays, so a dispatch made before it still maps its positions through
+the arrays it captured. The planner's ``estimate_candidates`` reads three
+mirrors and the count together, so it captures them under the corpus lock.
 
 Entry points the serving engine calls: ``DeviceIndexManager.
 query_both_packed_async`` (one packed H2D buffer, one device program, a
@@ -53,6 +71,8 @@ INT32_MIN = -2147483648
 INT32_MAX = 2147483647
 
 _EMB_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+# a corpus's device arrays, in the order ``device_arrays`` returns them
+DEVICE_ARRAYS = ("emb", "lex", "tech", "call_idx", "started", "has_emb")
 
 
 def _next_pow2(n: int, lo: int = 8) -> int:
@@ -190,24 +210,36 @@ class CorpusIndex:
         self._id_to_pos: Dict[int, int] = {}
         self.emb_rows = 0
         self.tombstones = 0
+        # ids explicitly deleted here: never re-inserted (a stale sync or
+        # rebuild read that raced the store delete); the syncer prunes an id
+        # once the delete's log entry is behind its watermark
+        self.deleted_ids: set = set()
         # optional probed-cluster dense index (settings.dense_ivf_enabled)
         self.ivf: Optional[IvfState] = None
         self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
         self._ivf_rebuilding = False
-        # bumped whenever row positions are renumbered (load_state): an IVF
+        # bumped whenever row positions are renumbered (load_state,
+        # compaction): an IVF
         # build that started before must not install its stale buckets
         self._pos_gen = 0
 
+    def _alloc_array(self, attr: str, cap: int) -> torch.Tensor:
+        """One empty device array of ``cap`` rows: zeros, and ``started``
+        all ``INT32_MIN`` (no row valid)."""
+        shape, dtype = {
+            "emb": ((cap, self.dim), self.emb_dtype),
+            "lex": ((cap, self.lex_dim), torch.int8),
+            "tech": ((cap, self.tech_slots), torch.int32),
+            "call_idx": ((cap,), torch.int32),
+            "started": ((cap,), torch.int32),
+            "has_emb": ((cap,), torch.bool),
+        }[attr]
+        if attr == "started":
+            return torch.full(shape, INT32_MIN, dtype=dtype, device=self.device)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
     def _alloc_arrays(self, cap: int) -> Tuple[torch.Tensor, ...]:
-        dev = self.device
-        return (
-            torch.zeros((cap, self.dim), dtype=self.emb_dtype, device=dev),
-            torch.zeros((cap, self.lex_dim), dtype=torch.int8, device=dev),
-            torch.zeros((cap, self.tech_slots), dtype=torch.int32, device=dev),
-            torch.zeros((cap,), dtype=torch.int32, device=dev),
-            torch.full((cap,), INT32_MIN, dtype=torch.int32, device=dev),
-            torch.zeros((cap,), dtype=torch.bool, device=dev),
-        )
+        return tuple(self._alloc_array(attr, cap) for attr in DEVICE_ARRAYS)
 
     def _alloc_device(self, cap: int) -> None:
         (self.emb, self.lex, self.tech, self.call_idx, self.started,
@@ -288,6 +320,10 @@ class CorpusIndex:
         # a row already present (same doc_id) is a no-op: a syncer and a
         # local ingest may race to insert the same committed row
         rows = [r for r in rows if int(r.doc_id) not in self._id_to_pos]
+        if self.deleted_ids:
+            # a row tombstoned here can only reappear through a stale sync
+            # or rebuild read that raced the store delete: refuse it
+            rows = [r for r in rows if int(r.doc_id) not in self.deleted_ids]
         if not rows:
             return
         n = len(rows)
@@ -348,6 +384,160 @@ class CorpusIndex:
             self.h_has_emb[pos] = True
             return int(pos.shape[0])
 
+    def contains(self, doc_ids: Sequence[int]) -> np.ndarray:
+        """Presence of each id among the live rows (the syncer and
+        ``reconcile`` ask this)."""
+        with self.lock:
+            lookup = self._id_to_pos
+            return np.array([int(d) in lookup for d in doc_ids], dtype=bool)
+
+    def _live_positions(self, doc_ids: Sequence[int], rows: np.ndarray,
+                        positions: Optional[np.ndarray] = None):
+        """(device index tensor, rows) of the ids this corpus holds live."""
+        pos = positions if positions is not None else self.position_of(doc_ids)
+        keep = pos >= 0
+        return self._put(pos[keep], torch.int64), rows[keep]
+
+    def set_tech(self, doc_ids: Sequence[int], tech_rows: np.ndarray) -> int:
+        """Replace the tech-token slots of existing rows (tech-token
+        backfill after lexicon changes): one scatter. -> rows written."""
+        with self.lock:
+            idx, vals = self._live_positions(
+                doc_ids, np.asarray(tech_rows, dtype=np.int32))
+            if idx.numel():
+                self.tech.index_copy_(0, idx, self._put(vals, torch.int32))
+            return int(idx.numel())
+
+    def set_lex(
+        self, doc_ids: Sequence[int], lex_rows: np.ndarray,
+        positions: Optional[np.ndarray] = None,
+    ) -> int:
+        """Replace the lexical signatures of existing rows (a re-featurize
+        under another layout): a pure row scatter; the caller rebuilds the
+        df table with ``replace_doc_freq`` once every row is rewritten.
+        ``positions`` skips the id lookup (-1 = not live)."""
+        with self.lock:
+            idx, vals = self._live_positions(
+                doc_ids, np.asarray(lex_rows, dtype=np.int8), positions)
+            if idx.numel():
+                self.lex.index_copy_(0, idx, self._put(vals, torch.int8))
+            return int(idx.numel())
+
+    def set_lex_ids(
+        self, doc_ids: Sequence[int], lex_rows: np.ndarray
+    ) -> np.ndarray:
+        """``set_lex`` by doc id -> the per-id live mask (a re-featurize
+        rebuilds df over every live row from it)."""
+        with self.lock, events.timed("index.set_lex_ids", corpus=self.name,
+                                     rows=len(doc_ids)):
+            pos = self.position_of(doc_ids)
+            self.set_lex(doc_ids, lex_rows, positions=pos)
+            return pos >= 0
+
+    def replace_doc_freq(self, doc_freq: np.ndarray) -> None:
+        """Swap the bucket-granularity df table after a full lexical
+        re-featurize (doc lengths do not depend on the layout, so
+        ``dl_sum`` stands)."""
+        with self.lock:
+            self.doc_freq = np.asarray(doc_freq, dtype=np.int64).copy()
+
+    # -- delete / compaction ------------------------------------------------
+    def delete_ids(
+        self,
+        doc_ids: Sequence[int],
+        lex_sigs: Optional[Sequence[Optional[np.ndarray]]] = None,
+        lex_dls: Optional[Sequence[int]] = None,
+    ) -> int:
+        """Tombstone rows: two in-place fills make them invisible to every
+        lane from the next dispatch on (``ops/masks.filter_mask`` treats
+        ``started == INT32_MIN`` as invalid, so kernels K1 and K3 never see
+        them; ``has_emb`` False removes them from the dense lane); the rows'
+        space is reclaimed by ``compact``. ``lex_sigs`` / ``lex_dls`` (from
+        the store) let the lexical corpus stats shed the deleted documents'
+        df and length mass. Unknown ids and repeats are skipped, but every
+        id given joins ``deleted_ids``. -> rows tombstoned."""
+        with self.lock:
+            # blacklist first: an id deleted here must never re-enter, even
+            # when this index does not hold it (a store-only writer's row)
+            self.deleted_ids.update(int(d) for d in doc_ids)
+            pos_all = self.position_of(doc_ids)
+            # unknown ids and repeats of one id count once
+            _uniq, first = np.unique(pos_all, return_index=True)
+            keep = np.zeros(pos_all.shape[0], dtype=bool)
+            keep[first] = True
+            keep &= pos_all >= 0
+            if not keep.any():
+                return 0
+            pos = pos_all[keep]
+            idx = self._put(pos, torch.int64)
+            self.started.index_fill_(0, idx, INT32_MIN)
+            self.has_emb.index_fill_(0, idx, False)
+            self.emb_rows -= int(self.h_has_emb[pos].sum())
+            self.h_started[pos] = INT32_MIN
+            self.h_has_emb[pos] = False
+            for i in np.flatnonzero(keep):
+                self._id_to_pos.pop(int(doc_ids[i]), None)
+                sig = lex_sigs[i] if lex_sigs is not None else None
+                if sig is not None:
+                    touched = np.flatnonzero(sig)
+                    self.doc_freq[touched] = np.maximum(
+                        self.doc_freq[touched] - 1, 0)
+                if lex_dls is not None:
+                    self.dl_sum -= int(lex_dls[i])
+            self.dl_sum = max(self.dl_sum, 0)
+            self.tombstones += int(pos.shape[0])
+            return int(pos.shape[0])
+
+    def maybe_compact(self, threshold_frac: float = 0.25) -> bool:
+        """Compact once tombstones reach a quarter of the rows (and at
+        least 64): bounded wasted device memory and scan work for a
+        one-time gather of the live rows."""
+        with self.lock:
+            if self.tombstones < max(int(self.count * threshold_frac), 64):
+                return False
+            self.compact()
+            return True
+
+    def compact(self) -> None:
+        """Gather the live rows to the front of arrays of the new capacity
+        (the JAX rule: the next power of two at or above the live rows,
+        never under ``index_initial_capacity``). Every dispatch waits on
+        the corpus lock meanwhile. Each array is gathered straight into the
+        front of its new allocation and the old one released before the
+        next is allocated, so the peak is the old arrays plus the largest
+        new one, never a third gathered copy. Row positions change: the host
+        mirrors are replaced (never written: a dispatch in flight maps its
+        positions through the arrays it captured), the IVF index is dropped
+        and ``_pos_gen`` moves."""
+        with self.lock, events.timed("index.compact", corpus=self.name):
+            n = self.count
+            live = np.flatnonzero(self.h_started[:n] != INT32_MIN)
+            out_rows = int(live.shape[0])
+            cap = max(_next_pow2(max(out_rows, 8)),
+                      int(settings.index_initial_capacity))
+            take = self._put(live, torch.int64)
+            for attr in DEVICE_ARRAYS:
+                dst = self._alloc_array(attr, cap)
+                torch.index_select(getattr(self, attr), 0, take,
+                                   out=dst[:out_rows])
+                setattr(self, attr, dst)
+            self.capacity = cap
+            for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+                old = getattr(self, attr)
+                mirror = np.zeros(cap, dtype=old.dtype)
+                if attr == "h_started":
+                    mirror[:] = INT32_MIN
+                mirror[:out_rows] = old[live]
+                setattr(self, attr, mirror)
+            self._id_to_pos = {
+                int(d): p for p, d in enumerate(self.h_ids[:out_rows])}
+            self.emb_rows = int(self.h_has_emb[:out_rows].sum())
+            self.count = out_rows
+            self.tombstones = 0
+            self.ivf = None
+            self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
+            self._pos_gen += 1
+
     # -- planning ---------------------------------------------------------
     def estimate_candidates(
         self,
@@ -358,17 +548,23 @@ class CorpusIndex:
         unfiltered: bool = False,
     ) -> int:
         """Masked row count for the exact-vs-ann planner, from the host
-        mirrors (the unfiltered case is a cached counter)."""
-        n = self.count
-        if n == 0:
-            return 0
-        if unfiltered:
-            return self.emb_rows if require_embedding else self.live_count
-        mask = (self.h_started[:n] >= date_min) & (self.h_started[:n] <= date_max)
+        mirrors (the unfiltered case is a cached counter). The count and
+        the mirrors are taken together under the corpus lock (a compaction
+        replaces them one by one and may shrink them) and read outside it."""
+        with self.lock:
+            n = self.count
+            if n == 0:
+                return 0
+            if unfiltered:
+                return self.emb_rows if require_embedding else self.live_count
+            started = self.h_started[:n]
+            call = self.h_call[:n]
+            has_emb = self.h_has_emb[:n]
+        mask = (started >= date_min) & (started <= date_max)
         if allowed_calls is not None:
-            mask &= allowed_calls[self.h_call[:n]]
+            mask &= allowed_calls[call]
         if require_embedding:
-            mask &= self.h_has_emb[:n]
+            mask &= has_emb
         return int(mask.sum())
 
     # -- state carried across packages (checkpoint payload) ----------------

@@ -7,9 +7,10 @@ What differs: each planner group is dispatched at its own batch size (the
 JAX package pads it to a power of two because XLA compiles a program per
 batch size; eager torch compiles nothing, and kernel K1 picks its query tile
 at run time), the dispatch is a ``torch.profiler.record_function`` region,
-``notes.retrieval.ann_expected_recall`` is None (the JAX package's
-calibration table was measured for its own approximate top-k, not for the
-port's), and the reranker (``settings.rerank_enabled``) is not ported yet.
+``notes.retrieval.ann_expected_recall`` comes from the port's own table
+of K1's recall read on the card (``engine/planner.MEASURED_ANN_RECALL``;
+flat in ``ef_search``, which does not move the port's scan), and the
+reranker (``settings.rerank_enabled``) is not ported yet.
 
 Response-shape and ranking-semantics parity with the reference
 (reference: app/retrieve.py:392-688):
@@ -54,7 +55,11 @@ from ..schemas import Budget, RetrieveRequest
 from ..store.db import get_store
 from ..utils import events
 from .filters import ResolvedFilters, resolve_filters
-from .planner import choose_dense_mode, recall_target_for_ef_search
+from .planner import (
+    choose_dense_mode,
+    expected_recall_for_ef_search,
+    recall_target_for_ef_search,
+)
 
 logger = get_logger(__name__)
 
@@ -158,8 +163,8 @@ def _make_plan(payload: RetrieveRequest) -> QueryPlan:
 
 def _tech_plans(plans: Sequence[QueryPlan]) -> None:
     """Tech slot structures for the whole batch in one featurize call
-    (the port's featurizer is pure Python: one placement loop per
-    query)."""
+    (one crossing into the native featurizer when it is built, else one
+    Python placement loop per query)."""
     pending = [p for p in plans if not p.empty]
     if not pending:
         return
@@ -178,7 +183,8 @@ def _tech_plans(plans: Sequence[QueryPlan]) -> None:
 
 def _featurize_plans(plans: Sequence[QueryPlan]) -> None:
     """Lexical query featurization for the whole batch in one featurize
-    call (pure Python in the port: one hashing pass per query)."""
+    call (one crossing into the native featurizer when it is built, else
+    one Python hashing pass per query)."""
     pending = [p for p in plans if not p.empty]
     if not pending:
         return
@@ -493,10 +499,13 @@ def _static_notes_cached(
             recall_target_for_ef_search(ef_search)
             if dense_enabled else None
         ),
-        # the JAX package reports the recall its own approximate top-k was
-        # measured to reach at this ef; no such calibration exists for the
-        # port's ann lane
-        "ann_expected_recall": None,
+        # the recall@10 the ann lane (K1's fixed partition) was measured
+        # to deliver on the card, the same for every ef
+        # (engine/planner.MEASURED_ANN_RECALL)
+        "ann_expected_recall": (
+            expected_recall_for_ef_search(ef_search)
+            if dense_enabled else None
+        ),
     }
 
 

@@ -1,10 +1,12 @@
 """Document and query featurization: text -> index row features.
 
-Counterpart of ``cadence_rag_tpu/ingest/featurize.py``, with the pure-Python
-featurizer of ``ops/hashing.py`` only (the JAX package's C++ featurizer,
-``native/lexhash``, gives the same bits and is not copied) and the plain
-single-hash lexical layout only: the learned vocab head (``core/vocab.py``)
-is not ported, so ``set_active_vocab`` refuses a vocab. Widths come from the
+Counterpart of ``cadence_rag_tpu/ingest/featurize.py``. The batch entry
+points dispatch to the native C++ featurizer (``native/lexhash``) when it is
+built and fall back to the pure-Python featurizer of ``ops/hashing.py``,
+the plain reference; both give the same bits (tested). Only the plain
+single-hash lexical layout is served: the learned vocab head
+(``core/vocab.py``) is not ported, so ``set_active_vocab`` refuses a vocab
+and the stand-ins below refuse a store that has one. Widths come from the
 port's ``settings``.
 """
 
@@ -30,6 +32,45 @@ VOCAB_NOT_PORTED = (
 )
 
 
+def refuse_applied_vocab(store) -> None:
+    """Raise when ``store`` has an applied lexical vocab: its signatures
+    follow a layout this package cannot featurize."""
+    with store.read() as conn:
+        row = conn.execute(
+            "SELECT MAX(version) AS v FROM lex_vocab WHERE applied=1"
+        ).fetchone()
+    if row["v"] is not None:
+        raise RuntimeError(
+            f"the store's lexical vocab v{row['v']}: {VOCAB_NOT_PORTED}")
+
+
+def adopt_store_layout(store, index) -> None:
+    """Stand-in for ``core/vocab.adopt_store_layout`` until the vocab head
+    is ported: a store without an applied vocab needs nothing adopted; one
+    with an applied vocab (another process built it) raises."""
+    refuse_applied_vocab(store)
+
+
+def auto_rebuild_if_needed(store, index) -> None:
+    """Stand-in for ``core/vocab.auto_rebuild_if_needed``: nothing to do
+    unless ``LEX_VOCAB_AUTO_REBUILD`` is on, which startup refuses."""
+    if settings.lex_vocab_auto_rebuild:
+        raise NotImplementedError(
+            f"LEX_VOCAB_AUTO_REBUILD: {VOCAB_NOT_PORTED}")
+
+
+def _native():
+    """The native featurizer module, or None where it cannot be built."""
+    from ..native import lexhash
+
+    return lexhash if lexhash.available() else None
+
+
+def native_available() -> bool:
+    """True when the batch entry points run the native featurizer."""
+    return _native() is not None
+
+
 def set_active_vocab(vocab: Optional[np.ndarray], version: int) -> None:
     """Only ``None`` (the plain layout) is accepted."""
     if vocab is not None and np.asarray(vocab).size:
@@ -52,8 +93,17 @@ def lexical_signatures_batch(texts: Sequence[str], avgdl: float):
     """Per text (int8 signature (lexical_dim,), touched buckets, doc
     length)."""
     dim = int(settings.lexical_dim)
-    return [hashing.doc_signature_from_raw(*hashing.raw_feature_arrays(t), dim, avgdl)
-            for t in texts]
+    return [hashing.doc_signature_from_raw(h, t, dim, avgdl)
+            for h, t in raw_lexical_features_batch(texts)]
+
+
+def raw_lexical_features_batch(texts: Sequence[str]):
+    """Per text (uint64 hashes, f32 tfs) raw features: one native call for
+    the batch when the native featurizer is built."""
+    native = _native()
+    if native is not None:
+        return native.raw_features_batch(list(texts))
+    return [hashing.raw_feature_arrays(t) for t in texts]
 
 
 def query_lexical_features(text: str):
@@ -63,8 +113,12 @@ def query_lexical_features(text: str):
 
 
 def query_lexical_features_batch(texts: Sequence[str]):
-    """``query_lexical_features`` per text."""
+    """``query_lexical_features`` per text: one native call for the batch
+    when the native featurizer is built."""
     dim = int(settings.lexical_dim)
+    native = _native()
+    if native is not None:
+        return native.query_features_batch(list(texts), dim)
     return [hashing.query_feature_arrays(text, dim) for text in texts]
 
 
@@ -83,5 +137,11 @@ def query_tech_structure(tokens: Sequence[str]) -> tuple:
 
 
 def query_tech_structures_batch(token_lists: Sequence[Sequence[str]]):
-    """``query_tech_structure`` per query."""
+    """``query_tech_structure`` per query: one native call for the batch
+    when the native featurizer is built."""
+    native = _native()
+    if native is not None:
+        cap = int(settings.tech_slot_capacity)
+        return native.tech_structures_batch(
+            token_lists, int(settings.tech_hash_slots), cap, max(8, 4 * cap))
     return [query_tech_structure(t) for t in token_lists]

@@ -1,8 +1,9 @@
 """Ingest core: call resolution/upsert, transcript + analysis ingest.
 
-Counterpart of ``cadence_rag_tpu/ingest/ingest.py``: the insert path and
-the startup rebuild, over the port's index. ``delete_call`` (tombstones and
-compaction) is not ported yet (ROADMAP Queue 1 item 3).
+Counterpart of ``cadence_rag_tpu/ingest/ingest.py``: the insert path,
+``delete_call`` (tombstones on the device first, the store second, then
+compaction once tombstones accumulate) and the startup rebuild, over the
+port's index.
 
 Behavioral parity with the reference's ingest flows (reference:
 app/ingest.py:366-755):
@@ -460,6 +461,94 @@ def ingest_analysis(
         call_id, len(artifacts), _STORE_ONLY,
     )
     return call_id, len(artifacts)
+
+
+# ---------------------------------------------------------------- delete ----
+
+@_vocab_read_gated
+def delete_call(call_id: str) -> dict:
+    """Delete a call and everything derived from it — durable rows AND the
+    device index (tombstones now, compaction when they accumulate). The
+    reference has no delete path; a production index needs one.
+    Vocab-gated like the ingests, as in the JAX package, where a delete
+    racing an online vocab rebuild would shed old-layout df mass from the
+    new df table."""
+    store = get_store()
+    index = None if _STORE_ONLY else get_index()
+    with store.read() as conn:
+        row = conn.execute(
+            "SELECT call_seq FROM calls WHERE call_id = ?", (call_id,)
+        ).fetchone()
+        if row is None:
+            raise ApiError(404, "call_id not found")
+        chunk_rows = conn.execute(
+            "SELECT chunk_id, lex_sig, lex_dl FROM chunks WHERE call_id = ?",
+            (call_id,),
+        ).fetchall()
+        artifact_rows = conn.execute(
+            "SELECT artifact_chunk_id, lex_sig, lex_dl FROM artifact_chunks "
+            "WHERE call_id = ?",
+            (call_id,),
+        ).fetchall()
+    chunk_ids = [int(r["chunk_id"]) for r in chunk_rows]
+
+    def _sig(raw):
+        if not raw:
+            return None
+        sig = np.frombuffer(raw, dtype=np.int8)
+        return sig if sig.shape[0] == int(settings.lexical_dim) else None
+
+    # Tombstone the DEVICE INDEX FIRST: if the store delete below fails,
+    # the call row survives, so a retry of DELETE still works (tombstoning
+    # twice is harmless after dedupe). The reverse order would commit the
+    # store delete and then — on an index failure — permanently serve
+    # doc_ids whose rows are gone, with the retry 404ing.
+    # (Store-only writers skip the index; the delete triggers log the
+    # rows + lex stats and the serving process's syncer tombstones.)
+    removed_chunks = removed_artifacts = 0
+    if index is not None:
+        removed_chunks = index.chunks.delete_ids(
+            chunk_ids,
+            [_sig(r["lex_sig"]) for r in chunk_rows],
+            [int(r["lex_dl"]) for r in chunk_rows],
+        )
+        removed_artifacts = index.artifacts.delete_ids(
+            [int(r["artifact_chunk_id"]) for r in artifact_rows],
+            [_sig(r["lex_sig"]) for r in artifact_rows],
+            [int(r["lex_dl"]) for r in artifact_rows],
+        )
+
+    with store.tx() as conn:
+        if chunk_ids:
+            placeholders = ",".join("?" * len(chunk_ids))
+            conn.execute(
+                f"DELETE FROM chunk_utterances WHERE chunk_id IN "
+                f"({placeholders})", chunk_ids,
+            )
+        for table in ("chunks", "artifact_chunks", "analysis_artifacts",
+                      "utterances", "transcript_ingests", "ingestion_runs"):
+            conn.execute(
+                f"DELETE FROM {table} WHERE call_id = ?", (call_id,)
+            )
+        conn.execute(
+            "DELETE FROM call_tags WHERE call_seq = ?", (int(row["call_seq"]),)
+        )
+        conn.execute("DELETE FROM calls WHERE call_id = ?", (call_id,))
+    compacted = False
+    if index is not None:
+        compacted = (
+            index.chunks.maybe_compact() | index.artifacts.maybe_compact()
+        )
+    logger.info(
+        "delete_call.complete call=%s chunks=%s artifacts=%s compacted=%s",
+        call_id, removed_chunks, removed_artifacts, compacted,
+    )
+    return {
+        "call_id": call_id,
+        "chunks_deleted": len(chunk_ids),
+        "artifact_chunks_deleted": len(artifact_rows),
+        "compacted": bool(compacted),
+    }
 
 
 # ---------------------------------------------------------------- rebuild ----

@@ -11,11 +11,10 @@ observability; no reference counterpart).
 Each request runs under an X-Request-ID logging context
 (reference: app/main.py:46-60).
 
-Counterpart of ``cadence_rag_tpu/serve/api.py``. Routes whose backing
-module is not ported yet answer 404 and name the ROADMAP item that ports
-it: ``/ingest/jobs*`` (the drop-folder queue) and ``DELETE /calls/{id}``
-(deletes and compaction). ``startup`` takes the device the index lives on
-and raises for each setting whose feature is not ported.
+Counterpart of ``cadence_rag_tpu/serve/api.py``, every route of it.
+``startup`` takes the device the index lives on, raises for each setting
+whose feature is not ported, reconciles an index already populated with the
+store, and starts the store syncer when ``STORE_SYNC_INTERVAL_S > 0``.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import uuid
 from datetime import datetime
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
 from pydantic import ValidationError
 
 from ..config import settings
@@ -34,7 +34,8 @@ from ..device import DeviceLike
 from ..embed.provider import NOT_PORTED_PROVIDERS, provider_kind
 from ..engine.browse import expand_evidence, get_call, get_chunk, list_calls
 from ..engine.retrieve import RERANK_NOT_PORTED, retrieve_evidence
-from ..ingest.featurize import VOCAB_NOT_PORTED
+from ..ingest.featurize import VOCAB_NOT_PORTED, refuse_applied_vocab
+from ..ingest.fs_queue import get_ingest_job, list_ingest_jobs
 from ..ingest.ingest import ingest_analysis, ingest_call, ingest_transcript
 from ..logging_utils import (
     configure_logging,
@@ -273,13 +274,20 @@ def _parse_limit(req: Request, default: str = "50") -> int:
     return limit
 
 
-def _not_ported(what: str, item: str) -> Handler:
-    """A route whose backing module the port does not have yet: 404,
-    naming the ROADMAP item that ports it."""
-    def handler(_req: Request):
-        raise ApiError(404, f"not found: {what} is not ported yet "
-                            f"(ROADMAP Queue 1 item {item})")
-    return handler
+def list_jobs_endpoint(req: Request):
+    status = req.q1("status")
+    allowed = {"queued", "running", "succeeded", "failed", "invalid"}
+    if status is not None and status not in allowed:
+        raise ApiError(400, "invalid ingest job status filter")
+    return 200, list_ingest_jobs(status=status, limit=_parse_limit(req))
+
+
+def get_job_endpoint(req: Request):
+    try:
+        job_id = str(uuid.UUID(req.path_params["ingest_job_id"]))
+    except ValueError as exc:
+        raise ApiError(422, "invalid job id") from exc
+    return 200, get_ingest_job(job_id)
 
 
 def list_calls_endpoint(req: Request):
@@ -300,6 +308,16 @@ def get_call_endpoint(req: Request):
     except ValueError as exc:
         raise ApiError(422, "invalid call id") from exc
     return 200, get_call(call_id)
+
+
+def delete_call_endpoint(req: Request):
+    try:
+        call_id = str(uuid.UUID(req.path_params["call_id"]))
+    except ValueError as exc:
+        raise ApiError(422, "invalid call id") from exc
+    from ..ingest.ingest import delete_call
+
+    return 200, delete_call(call_id)
 
 
 def get_chunk_endpoint(req: Request):
@@ -340,7 +358,10 @@ def retrieve_batch_endpoint(req: Request):
 
 
 def index_stats_endpoint(_req: Request):
+    from ..ingest.sync import get_syncer
+
     index = get_index()
+    syncer = get_syncer()
 
     def corpus_stats(corpus):
         return {
@@ -360,6 +381,13 @@ def index_stats_endpoint(_req: Request):
         "chunks": corpus_stats(index.chunks),
         "artifact_chunks": corpus_stats(index.artifacts),
         "call_capacity": index.call_capacity,
+        # store->index sync observability: lag = mutations not yet
+        # applied to this process's device index (ingest/sync.py)
+        "sync": {
+            "consumer_id": syncer.consumer_id,
+            "applied_seq": syncer.last_seq,
+            "store_seq": syncer.current_watermark(),
+        },
     }
 
 
@@ -373,11 +401,8 @@ def _unported_settings() -> List[str]:
     """Why the current settings cannot be served by the port: one line
     per setting whose feature is not ported, naming its ROADMAP item."""
     problems = []
-    if float(settings.store_sync_interval_s) > 0:
-        problems.append(
-            f"STORE_SYNC_INTERVAL_S={settings.store_sync_interval_s}: the "
-            "store->index syncer (ingest/sync.py) is not ported yet (ROADMAP "
-            "Queue 1 item 3); set STORE_SYNC_INTERVAL_S=0")
+    if settings.lex_vocab_auto_rebuild:
+        problems.append(f"LEX_VOCAB_AUTO_REBUILD: {VOCAB_NOT_PORTED}")
     if settings.rerank_enabled:
         problems.append(RERANK_NOT_PORTED)
     if provider_kind() in NOT_PORTED_PROVIDERS:
@@ -400,10 +425,13 @@ def startup(device: DeviceLike = "cuda") -> None:
     """Fail-fast startup gate + index recovery (reference lifespan:
     app/main.py:33-39), on ``device`` (the card unless the caller asks
     for the CPU; asking for CUDA without a card raises). Settings whose
-    feature is not ported raise before anything starts. An empty index is
-    rebuilt from the store; an index already populated in this process is
-    served as it is (the JAX package reconciles it with the store through
-    the syncer, which is not ported yet)."""
+    feature is not ported raise before anything starts. On CUDA, f32
+    matmuls are pinned to full precision (``allow_tf32`` off): the IVF
+    lane scores f32 queries (``ops/ivf.py``), and a process that had asked
+    for TF32 would otherwise change its answers. An empty index is rebuilt
+    from the store; an index already populated in this process is
+    reconciled with the store (writes and deletes it missed); the store
+    syncer starts when ``STORE_SYNC_INTERVAL_S > 0``."""
     configure_logging(settings.log_level)
     problems = _unported_settings()
     if problems:
@@ -413,24 +441,29 @@ def startup(device: DeviceLike = "cuda") -> None:
         ok, message = store.validate_versions()
         if not ok:
             raise RuntimeError(message)
-    with store.read() as conn:
-        vocab_row = conn.execute(
-            "SELECT MAX(version) AS v FROM lex_vocab WHERE applied=1"
-        ).fetchone()
-    if vocab_row["v"] is not None:
-        raise RuntimeError(
-            f"the store's lexical vocab v{vocab_row['v']}: {VOCAB_NOT_PORTED}")
+    refuse_applied_vocab(store)
     from ..ingest.ingest import rebuild_index_from_store
+    from ..ingest.sync import get_syncer
 
     index = get_index(device)
+    if index.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    syncer = get_syncer()
+    # watermark BEFORE the rebuild read: any row committed in between has
+    # seq > watermark and the first poll picks it up (rows both rebuilt
+    # and logged dedupe on doc_id)
+    syncer.init_watermark()
     if index.chunks.count == 0 and index.artifacts.count == 0:
         counts = rebuild_index_from_store()
         logger.info("api.startup index_rebuilt chunks=%s artifacts=%s", *counts)
     else:
-        logger.info(
-            "api.startup index_prepopulated chunks=%s artifacts=%s",
-            index.chunks.count, index.artifacts.count,
-        )
+        # pre-populated index: diff against the store so writes that
+        # happened while this process was down, or rows deleted since, are
+        # applied
+        counts = syncer.reconcile()
+        logger.info("api.startup index_reconciled %s", counts)
+    if float(settings.store_sync_interval_s) > 0:
+        syncer.start(float(settings.store_sync_interval_s))
     if (
         settings.dense_ivf_enabled
         and index.chunks.count >= int(settings.ivf_min_rows)
@@ -453,13 +486,11 @@ def build_router() -> Router:
                ingest_transcript_batch_endpoint)
     router.add("POST", "/ingest/call", ingest_call_endpoint)
     router.add("POST", "/ingest/analysis", ingest_analysis_endpoint)
-    jobs = _not_ported("the ingest job queue (ingest/fs_queue.py)", "3")
-    router.add("GET", "/ingest/jobs", jobs)
-    router.add("GET", "/ingest/jobs/{ingest_job_id}", jobs)
+    router.add("GET", "/ingest/jobs", list_jobs_endpoint)
+    router.add("GET", "/ingest/jobs/{ingest_job_id}", get_job_endpoint)
     router.add("GET", "/calls", list_calls_endpoint)
     router.add("GET", "/calls/{call_id}", get_call_endpoint)
-    router.add("DELETE", "/calls/{call_id}",
-               _not_ported("deleting a call (delete_call, compaction)", "3"))
+    router.add("DELETE", "/calls/{call_id}", delete_call_endpoint)
     router.add("GET", "/chunks/{chunk_id}", get_chunk_endpoint)
     router.add("POST", "/expand", expand_endpoint)
     router.add("POST", "/retrieve", retrieve_endpoint)

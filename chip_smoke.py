@@ -42,7 +42,39 @@ final result line:
              phase launched them with (from its dispatch log: per corpus,
              K1 with and without the dense lane and each query tile, K3 at
              each query width, at the smallest and largest batch served).
-             The kernels line's K1 and K3 launches are this phase's.
+             The engine's host stages are read twice, with the native C++
+             featurizer (which must have loaded) and with the pure-Python
+             one.
+6b. writes — on the serve phase's index and store, after a second
+             ``startup`` with ``STORE_SYNC_INTERVAL_S`` 0.2 (it reconciles
+             the populated index with the store and starts the syncer) and
+             the server up again: (1) the port's scanner and worker scripts
+             run store-only in child processes over an inbox of 16 bundles,
+             one new known row each; the server's syncer brings them onto
+             the card; every new known row must come first over HTTP; the
+             lag from each job's end to the first answer that holds its row
+             is printed. (2) ``DELETE /calls/{id}`` for four of those calls
+             and for the eight synthetic calls whose rows the probe queries
+             returned most; after each, ids_only and pack answers hold no
+             deleted id and ``/index/stats`` counts the tombstones; a second
+             DELETE answers 404. K1 and K3 are then held to their plain
+             versions on the index's own tensors, tombstones and all.
+             (3) under rounds of 128 concurrent /retrieve from the client
+             process: ``delete_ids`` tombstones rows up to just under the
+             25% threshold of both corpora, then one more DELETE crosses it
+             and ``maybe_compact`` compacts both corpora inside that
+             request. Prints each compaction's time and peak device memory
+             and the longest request latency across it beside the p50.
+             Afterwards: tombstones 0, count = live rows, every surviving
+             known row first, no deleted id in any answer, 404 for a deleted
+             call. (4) K1 and K3 against their plain versions on the
+             compacted tensors and at the compacted (ragged) row counts for
+             the shapes this phase dispatched; both must have launched.
+6c. int8    — an index with ``INDEX_EMBEDDING_DTYPE=int8`` (300,037 chunks,
+             30,011 artifacts, known rows) serves one batch of 128 through
+             the engine: planned ann, every known row first.
+             The kernels line's K1 and K3 launches are the serve and the
+             writes phases' together.
 7. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
              (a contiguous and a random 5% mask) and at a ragged 100,000
              rows, batch 64, with CUDA-event times beside the plain version
@@ -52,8 +84,11 @@ final result line:
              and ivf at 1M rows, 64 queries, k 10, densities 1.0 and 0.003
              contiguous and 0.05 random; hnsw at 16,384 rows unfiltered;
              recall under 0.95 fails (ivf under a filter is printed, not
-             held). Then the filtered-recall sweep at 1M rows. K2 must
-             have launched.
+             held); the ann lane's recalls must not fall below the
+             port's table (engine/planner.MEASURED_ANN_RECALL, which
+             ``notes.retrieval.ann_expected_recall`` answers from) by more
+             than one neighbour of a case's 640. Then the
+             filtered-recall sweep at 1M rows. K2 must have launched.
 9. ivf     — ``build_ivf`` on phase 5's chunks, then one unscoped batch of
              128 planned with ``dense_ivf_enabled``: the planner must choose
              ivf, IVF must serve the chunks' dense lane, and every known
@@ -71,12 +106,15 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import re
 import socket
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +127,12 @@ CHUNK_KS = (50, 50, 50)          # (dense, lexical, tech), engine/retrieve.py
 ARTIFACT_KS = (10, 10, 50)
 KNOWN_CALL = 7
 N_KNOWN = 16
+# the writes phase: bundles the worker ingests, calls of those deleted over
+# HTTP, synthetic calls deleted over HTTP, and the served syncer's interval
+N_BUNDLES = 16
+WORKER_DELETES = 4
+SYNTHETIC_DELETES = 8
+SYNC_INTERVAL_S = 0.2
 KNOWN_ID0 = 50_000_000
 KNOWN_STARTED = 1_760_000_000    # after every synthetic row: newest call
 # K1 tolerances: f32 sums of exact products taken in another order
@@ -118,6 +162,22 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # -- K1 -----------------------------------------------------------------------
+def lexical_and_filter_queries(g, device, batch, lex_dim, n_calls):
+    """The query side that K1's and K3's checks share: sparse idf-weighted
+    lexical queries, as ops/pack._densify rebuilds them, and a real filter
+    (half the calls allowed, a date window on odd queries).
+    -> (q_lex, allowed, date_min, date_max)"""
+    q_lex = torch.zeros((batch, lex_dim), device=device)
+    q_lex.scatter_add_(
+        1, torch.randint(0, lex_dim, (batch, 64), generator=g, device=device),
+        torch.randn((batch, 64), generator=g, device=device) * 0.5)
+    allowed = torch.rand((batch, n_calls), generator=g, device=device) < 0.5
+    dmin = torch.full((batch,), INT32_MIN + 1, dtype=torch.int32, device=device)
+    dmin[1::2] = 1_650_000_000
+    dmax = torch.full((batch,), INT32_MAX, dtype=torch.int32, device=device)
+    return q_lex, allowed, dmin, dmax
+
+
 def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
     from cadence_rag_tpu_torch.ops.masks import filter_mask
 
@@ -135,11 +195,6 @@ def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
     del x
     lex = torch.randint(-4, 5, (n, lex_dim), generator=g, device=device,
                         dtype=torch.int8)
-    # sparse idf-weighted queries, as ops/pack._densify rebuilds them
-    q_lex = torch.zeros((batch, lex_dim), device=device)
-    q_lex.scatter_add_(
-        1, torch.randint(0, lex_dim, (batch, 64), generator=g, device=device),
-        torch.randn((batch, 64), generator=g, device=device) * 0.5)
     # a real filter: half the calls, a date window on odd queries, 1% of
     # rows invalid, 2% of rows without embeddings
     call_idx = torch.randint(0, N_CALLS, (n,), generator=g, device=device,
@@ -147,10 +202,8 @@ def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
     started = torch.randint(1_600_000_000, 1_750_000_000, (n,), generator=g,
                             device=device, dtype=torch.int32)
     started[torch.rand((n,), generator=g, device=device) < 0.01] = INT32_MIN
-    allowed = torch.rand((batch, N_CALLS), generator=g, device=device) < 0.5
-    dmin = torch.full((batch,), INT32_MIN + 1, dtype=torch.int32, device=device)
-    dmin[1::2] = 1_650_000_000
-    dmax = torch.full((batch,), INT32_MAX, dtype=torch.int32, device=device)
+    q_lex, allowed, dmin, dmax = lexical_and_filter_queries(
+        g, device, batch, lex_dim, N_CALLS)
     mask = filter_mask(call_idx, started, allowed, dmin, dmax)
     has_emb = torch.rand((n,), generator=g, device=device) > 0.02
     return q_emb, q_lex, emb, lex, mask, has_emb
@@ -698,7 +751,7 @@ def run_recall(device, n, n_queries, k, hnsw_n, sweep_n, sweep_rounds,
             rows.append({"mode": mode, "n": n, "density": density,
                          "mask": shape, "recall_at_k": got["recall_at_k"],
                          "held": held, "ms": got["mode_ms"],
-                         "build_s": build_s})
+                         "build_s": build_s, "hits": n_queries * k})
             if held and got["recall_at_k"] < MIN_RECALL:
                 misses.append(rows[-1])
     del docs, fn
@@ -737,6 +790,34 @@ def run_recall(device, n, n_queries, k, hnsw_n, sweep_n, sweep_rounds,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return {"gate": rows, "sweep": sweep}
+
+
+def check_recall_table(gate_rows, card):
+    """The ann lane's recalls of this run against the port's committed table
+    (engine/planner.MEASURED_ANN_RECALL, which ``ann_expected_recall``
+    answers from): the table must not promise more than the card delivers.
+    One neighbour of the case's queries x k may differ (a tie taken in
+    another order); the gate itself holds the 0.95 floor."""
+    from cadence_rag_tpu_torch.engine.planner import (
+        MEASURED_ANN_RECALL, expected_recall_for_ef_search,
+    )
+
+    ann = [r for r in gate_rows if r["mode"] == "ann"]
+    measured = {(r["density"], r["mask"]): r["recall_at_k"] for r in ann}
+    one_hit = 1.0 / ann[0]["hits"]
+    low = [(case, measured.get(case), promised)
+           for case, promised in MEASURED_ANN_RECALL
+           if measured.get(case) is None or measured[case] < promised - one_hit - 1e-9]
+    if low:
+        raise RuntimeError(f"the ann lane's recall fell below the port's table "
+                           f"(case, measured, table): {low}")
+    log(f"ann recall table ({card}): measured "
+        + ", ".join(f"{case} {measured[case]:.4f} (table {promised:.4f})"
+                    for case, promised in MEASURED_ANN_RECALL)
+        + f"; ann_expected_recall answers {expected_recall_for_ef_search(80):.4f} "
+        "for every ef_search")
+    return {"measured": {str(k): v for k, v in measured.items()},
+            "expected": expected_recall_for_ef_search(80)}
 
 
 # -- main path ----------------------------------------------------------------
@@ -1122,7 +1203,8 @@ def kernel_device_ms(prof):
 
 
 def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
-              warm_rounds=20, bench_iters=10, profile=True, window_ms=5):
+              warm_rounds=20, bench_iters=10, profile=True, window_ms=5,
+              write_rounds=40):
     """The port's /retrieve request path: an index of ``n_chunks`` +
     ``n_artifacts`` synthetic rows on ``device`` with matching rows in a
     temporary SQLite store, the known rows ingested and embedded through
@@ -1135,7 +1217,8 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     plan ann and (c) exact; the batcher coalesced; every known row first;
     with ``profile``, K1 and K3 in a torch.profiler window over one round
     of (a). Then the engine's host split, serial and pipelined QPS, and
-    the real gate on ``device``. -> summary"""
+    the real gate on ``device``, after the ``writes`` phase
+    (``run_writes``) on the same index and store. -> summary"""
     import shutil
     import tempfile
 
@@ -1144,6 +1227,8 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     from cadence_rag_tpu_torch.evals.synth import (
         bulk_store_rows, install_synthetic_corpus,
     )
+    from cadence_rag_tpu_torch.ingest import featurize
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
     from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
     from cadence_rag_tpu_torch.ops.tech_keys import range_topk
     from cadence_rag_tpu_torch.schemas import RetrieveRequest
@@ -1155,7 +1240,8 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     overrides = {"store_path": str(workdir / "serve.db"),
                  "embeddings_provider": "stub", "embeddings_base_url": "",
                  "retrieve_batch_window_ms": window_ms, "store_sync_interval_s": 0.0,
-                 "log_level": "WARNING"}
+                 "ingest_root_dir": str(workdir / "ingest"),
+                 "ingest_single_file_min_age_s": 0, "log_level": "WARNING"}
     saved = {key: getattr(settings, key) for key in overrides}
     for key, value in overrides.items():
         setattr(settings, key, value)
@@ -1171,6 +1257,10 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
         t0 = time.perf_counter()
         reset_store()
         core_index.reset_index()
+        reset_syncer()
+        if not featurize.native_available():
+            raise RuntimeError("the native featurizer (native/lexhash.cpp) did "
+                               "not build or load: g++ is needed")
         index = core_index.get_index(device)
         index.ensure_call_capacity(N_CALLS)
         install_synthetic_corpus(index.chunks, n_chunks, N_CALLS, seed=0)
@@ -1302,6 +1392,12 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
             RetrieveRequest(query=q, return_style=style)
             for q in unique_queries(concurrency, 10_000 + r)])
         summary["split_ids_only"] = engine_split(reqs("ids_only"), 5)
+        # the same stages with the pure-Python featurizer (ops/hashing.py)
+        native, featurize._native = featurize._native, lambda: None
+        try:
+            summary["split_ids_only_python"] = engine_split(reqs("ids_only"), 5)
+        finally:
+            featurize._native = native
         summary["split_packs"] = engine_split(reqs("evidence_pack_json"), 5)
         summary["split_scoped"] = engine_split(lambda r: [
             RetrieveRequest.model_validate(body) for body in scoped(10_000 + r)], 5)
@@ -1310,9 +1406,14 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
                 engine_qps(reqs(style), bench_iters, depth)
             for style in ("ids_only", "evidence_pack_json")
             for depth in (None, 2, 3)}
+        summary["writes"] = run_writes(
+            device, index, workdir, dispatches, known_texts, known_ids,
+            n_chunks, n_artifacts, concurrency=concurrency,
+            traffic_rounds=write_rounds)
     finally:
         if stop is not None:
             stop()
+        reset_syncer()
         batcher_log.removeHandler(sizes)
         batcher_log.propagate = True
         for key, value in saved.items():
@@ -1331,6 +1432,566 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     if low or outcome["failures"]:
         raise RuntimeError(f"real gate under its floors: {low} {outcome['failures']}")
     return summary
+
+
+# -- writes: worker -> syncer -> served, deletes, compaction under traffic -------
+WRITE_KNOWN_TEXT = ("postmortem {i}: the billing ledger replica fell behind after "
+                    "the failover to v4.{i}.9, tracked in OPS-{t}")
+# a child process of the port's scripts: no jax and no JAX package either
+CHILD = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "cadence_rag_tpu"):
+    sys.modules[name] = None
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__")
+"""
+CHILD_SETTINGS = ("store_path", "ingest_root_dir", "ingest_single_file_min_age_s",
+                  "embeddings_provider", "embeddings_base_url", "embeddings_dim",
+                  "lexical_dim", "tech_hash_slots", "tech_slot_capacity",
+                  "index_initial_capacity", "log_level")
+
+
+def child_env():
+    """The environment of a child running one of the port's scripts: this
+    process's settings for the store, the inbox and the widths."""
+    from cadence_rag_tpu_torch.config import settings
+
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for name in CHILD_SETTINGS:
+        env[name.upper()] = str(getattr(settings, name))
+    return env
+
+
+def http_json(port, method, path, body=None, timeout=120):
+    """One request from this process -> (status, JSON body)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        None if body is None else json.dumps(body).encode(),
+        {"Content-Type": "application/json"}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"null")
+
+
+def wait_for(check, what, timeout=120.0, every=0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = check()
+        if got:
+            return got
+        time.sleep(every)
+    raise RuntimeError(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def answer_ids(data):
+    """(chunk ids, artifact chunk ids) a /retrieve answer names, ids_only
+    or evidence pack."""
+    chunks, artifacts = set(), set()
+    for evidence in data.get("retrieved_ids", []):
+        kind, _, num = evidence.partition(":")
+        (chunks if kind == "chunk" else artifacts).add(int(num))
+    chunks.update(q["chunk_id"] for q in data.get("quotes", []))
+    artifacts.update(a["artifact_chunk_id"] for a in data.get("artifacts", []))
+    return chunks, artifacts
+
+
+class CompactLog:
+    """Times every ``CorpusIndex.compact`` (host clock around the device's
+    work, synchronised) and reads the peak device memory across it."""
+
+    def __init__(self, index_module):
+        self.records = []
+        self.cls = index_module.CorpusIndex
+        self.inner = inner = self.cls.compact
+        log = self
+
+        def compact(corpus):
+            cuda = corpus.device.type == "cuda"
+            rows = corpus.count
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            inner(corpus)
+            if cuda:
+                torch.cuda.synchronize()
+            log.records.append({
+                "corpus": corpus.name, "at": time.time(),
+                "seconds": time.perf_counter() - t0, "rows_before": rows,
+                "rows_after": corpus.count, "capacity": corpus.capacity,
+                "held_bytes": held if cuda else None,
+                "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+
+        self.cls.compact = compact
+
+    def close(self):
+        self.cls.compact = self.inner
+
+
+def check_kernels_on_corpus(corpus, n_calls, batch, seed):
+    """K1 (both lanes) and K3 against their plain versions on the corpus's
+    own device tensors as they stand (tombstoned rows, a compacted ragged
+    count under the capacity), for ``batch`` seeded queries under a real
+    filter. check_lane also proves that no candidate names a row the mask
+    excludes, so no tombstoned row is ever a candidate."""
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan, fused_scan_plain
+    from cadence_rag_tpu_torch.ops.lexical import LEX_MATCH_THRESHOLD
+    from cadence_rag_tpu_torch.ops.masks import filter_mask
+
+    dev = corpus.device
+    with corpus.lock:
+        emb, lex, tech, call_idx, started, has_emb = corpus.device_arrays()
+        count = corpus.count
+    n = emb.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    scale = 1.0 / 127.0 if emb.dtype == torch.int8 else 1.0
+    src = torch.randint(0, max(count, 1), (batch,), generator=g, device=dev)
+    q_emb = emb[src].float() * scale + 0.05 * torch.randn(
+        (batch, emb.shape[1]), generator=g, device=dev)
+    q_emb = q_emb / torch.linalg.vector_norm(q_emb, dim=1, keepdim=True)
+    q_lex, allowed, dmin, dmax = lexical_and_filter_queries(
+        g, dev, batch, lex.shape[1], n_calls)
+    mask = filter_mask(call_idx, started, allowed, dmin, dmax)
+    args = (q_emb, q_lex, emb, lex, mask, has_emb)
+    got = fused_scan(*args, dense=True)
+    want = fused_scan_plain(*args, dense=True)
+    lexical = check_lane(got[2], got[3], want[2], want[3],
+                         (q_lex, lex, 1.0, mask, n), LEX_ATOL, LEX_MATCH_THRESHOLD)
+    dense = check_lane(got[0], got[1], want[0], want[1],
+                       (q_emb.to(torch.bfloat16).float(), emb, scale,
+                        mask & has_emb[None, :], n), DENSE_ATOL)
+    del got, want, args
+    q_tech = tech[src].clone()
+    q_tech[torch.rand(q_tech.shape, generator=g, device=dev) < 0.5] = 0
+    finite = check_k3_case(q_tech, tech, started, mask, min(50, n))
+    live = int((started[:count] != INT32_MIN).sum())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"corpus": corpus.name, "rows": n, "count": count, "live": live,
+            "batch": batch, "k3_finite": finite,
+            "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"])}
+
+
+def run_writes(device, index, workdir, dispatches, known_texts, known_ids,
+               n_chunks, n_artifacts, concurrency=128, traffic_rounds=40):
+    """The write side on the serve phase's index and store (see the module
+    docstring, phase 6b). -> summary"""
+    from collections import Counter
+    from datetime import datetime
+
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+    from cadence_rag_tpu_torch.serve.api import startup
+    from cadence_rag_tpu_torch.store.db import get_store
+
+    out = {}
+    launches = Counter()
+
+    def take_launches():
+        launches.update(fused_scan=fused_scan.launches, tech_topk=range_topk.launches)
+        fused_scan.launches = 0
+        range_topk.launches = 0
+
+    def stats():
+        status, data = http_json(port, "GET", "/index/stats")
+        if status != 200:
+            raise RuntimeError(f"/index/stats answered {status}")
+        return data
+
+    settings.store_sync_interval_s = SYNC_INTERVAL_S
+    t0 = time.perf_counter()
+    startup(device)               # reconciles the populated index, starts the syncer
+    out["startup_s"] = time.perf_counter() - t0
+    port, stop = start_server()
+    compactions = CompactLog(core_index)
+    worker = None
+    dispatches.take()
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    try:
+        rows0 = stats()
+        # 1. a worker's writes reach the served index through the syncer
+        inbox = Path(settings.ingest_root_dir) / "inbox"
+        texts = [WRITE_KNOWN_TEXT.format(i=i, t=5200 + i) for i in range(N_BUNDLES)]
+        for i, text in enumerate(texts):
+            bundle = inbox / f"smoke-bundle-{i:02d}"
+            bundle.mkdir(parents=True)
+            (bundle / "transcript.json").write_text(json.dumps([
+                {"speaker": "Ana", "start_ts_ms": 0, "end_ts_ms": 900, "text": text}]))
+            (bundle / "_READY").touch()
+        env = child_env()
+        scan = subprocess.run(
+            [sys.executable, "-c", CHILD,
+             "cadence_rag_tpu_torch.scripts.ingest_scanner", "--once"],
+            env=env, capture_output=True, text=True, timeout=300)
+        if scan.returncode != 0:
+            raise RuntimeError(f"the scanner failed: {scan.stderr[-2000:]}")
+        seen, poll_errors = [], []
+        polling = threading.Event()
+        new_queries = [{"query": t, "return_style": "ids_only"} for t in texts]
+
+        def poll():
+            while not polling.is_set():
+                status, data = http_json(port, "POST", "/retrieve/batch", new_queries)
+                if status != 200:
+                    poll_errors.append((status, data))
+                    return
+                seen.append((time.time(), [r["retrieved_ids"][:1]
+                                           for r in data["results"]]))
+                polling.wait(0.02)
+
+        poller = threading.Thread(target=poll, name="poll", daemon=True)
+        poller.start()
+        t_worker = time.perf_counter()
+        worker = subprocess.Popen(
+            [sys.executable, "-c", CHILD,
+             "cadence_rag_tpu_torch.scripts.ingest_worker", "--idle-sleep", "0.05"],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+        def jobs_done():
+            if worker.poll() is not None:
+                raise RuntimeError(f"the worker died: {worker.stderr.read()[-2000:]}")
+            _s, data = http_json(port, "GET", "/ingest/jobs?limit=200")
+            bad = [j for j in data["items"] if j["status"] in ("failed", "invalid")]
+            if bad:
+                raise RuntimeError(f"ingest job failed: {bad[0]}")
+            done = [j for j in data["items"] if j["status"] == "succeeded"]
+            return done if len(done) == N_BUNDLES else None
+
+        jobs = wait_for(jobs_done, "the worker's jobs", timeout=300)
+        out["worker_s"] = time.perf_counter() - t_worker
+        worker.terminate()
+        worker.wait(timeout=60)
+        worker = None
+        with get_store().read() as conn:
+            new_ids = {r["call_id"]: int(r["chunk_id"]) for r in conn.execute(
+                "SELECT call_id, chunk_id FROM chunks WHERE call_id IN (%s)"
+                % ",".join("?" * len(jobs)), [j["call_id"] for j in jobs])}
+        by_bundle = {j["bundle_id"]: j for j in jobs}
+        new_rows = []                 # per bundle: (call id, chunk id, job end s)
+        for i in range(N_BUNDLES):
+            job = by_bundle[f"smoke-bundle-{i:02d}"]
+            new_rows.append((job["call_id"], new_ids[job["call_id"]],
+                             datetime.fromisoformat(job["finished_at"]).timestamp(),
+                             datetime.fromisoformat(job["started_at"]).timestamp()))
+
+        def synced():
+            data = stats()
+            sync = data["sync"]
+            return data if (sync["applied_seq"] >= sync["store_seq"]
+                            and data["chunks"]["count"]
+                            == rows0["chunks"]["count"] + N_BUNDLES) else None
+
+        rows1 = wait_for(synced, "the syncer to reach the store's sequence")
+        want_first = [[f"chunk:{row[1]}"] for row in new_rows]
+        wait_for(lambda: poll_errors or (seen and seen[-1][1] == want_first),
+                 "every synced row to come first")
+        polling.set()
+        poller.join(60)
+        if poll_errors:
+            raise RuntimeError(f"/retrieve/batch answered {poll_errors[0]}")
+        first_seen = [min(t for t, firsts in seen if firsts[i] == want_first[i])
+                      for i in range(N_BUNDLES)]
+        lag_end = [first_seen[i] - new_rows[i][2] for i in range(N_BUNDLES)]
+        lag_start = [first_seen[i] - new_rows[i][3] for i in range(N_BUNDLES)]
+        res = http_rounds(port, "/retrieve", lambda r: new_queries, 1, workdir)
+        got = [d["retrieved_ids"][:1] for _s, _l, d in res[0][1]]
+        if got != want_first:
+            raise RuntimeError(f"synced rows not first over HTTP: {got} != {want_first}")
+        out["sync"] = {
+            "bundles": N_BUNDLES, "applied_seq": rows1["sync"]["applied_seq"],
+            "interval_s": SYNC_INTERVAL_S, "polls": len(seen),
+            "lag_from_job_end_s": {"min": min(lag_end), "p50": float(np.median(lag_end)),
+                                   "max": max(lag_end)},
+            "lag_from_job_start_s": {"p50": float(np.median(lag_start)),
+                                     "max": max(lag_start)}}
+
+        # 2. DELETE over HTTP: some of the worker's calls, and the synthetic
+        # calls whose rows the probe queries return most
+        probes = [{"query": q, "return_style": "ids_only"}
+                  for q in unique_queries(64, 777)]
+        packs = [{"query": b["query"]} for b in probes[:16]]
+        _s, data = http_json(port, "POST", "/retrieve/batch", probes)
+        returned = Counter((c - 1) % N_CALLS for r in data["results"]
+                           for c in answer_ids(r)[0] if c <= n_chunks)
+        synthetic = [s_ for s_, _n in returned.most_common(SYNTHETIC_DELETES)]
+        if len(synthetic) < SYNTHETIC_DELETES:
+            raise RuntimeError("the probe queries returned too few synthetic calls")
+        call_uuid = lambda s_: f"00000000-0000-4000-8000-{s_:012d}"
+        call_rows = lambda s_: (set(range(s_ + 1, n_chunks + 1, N_CALLS)),
+                                set(range(s_ + 1, n_artifacts + 1, N_CALLS)))
+        targets = [(row[0], {row[1]}, set()) for row in new_rows[:WORKER_DELETES]]
+        targets += [(call_uuid(s_), *call_rows(s_)) for s_ in synthetic]
+        gone_chunks, gone_artifacts, delete_ms = set(), set(), []
+
+        def assert_none_deleted(results, what):
+            for r in results:
+                chunks, artifacts = answer_ids(r)
+                if chunks & gone_chunks or artifacts & gone_artifacts:
+                    raise RuntimeError(
+                        f"{what}: an answer holds a deleted id: "
+                        f"{sorted(chunks & gone_chunks)[:3]} "
+                        f"{sorted(artifacts & gone_artifacts)[:3]}")
+
+        for call_id, chunks, artifacts in targets:
+            t = time.perf_counter()
+            status, body = http_json(port, "DELETE", f"/calls/{call_id}")
+            delete_ms.append((time.perf_counter() - t) * 1e3)
+            if (status != 200 or body["chunks_deleted"] != len(chunks)
+                    or body["artifact_chunks_deleted"] != len(artifacts)
+                    or body["compacted"]):
+                raise RuntimeError(f"DELETE /calls/{call_id}: {status} {body}")
+            gone_chunks |= chunks
+            gone_artifacts |= artifacts
+            status, data = http_json(port, "POST", "/retrieve/batch",
+                                     probes + packs + new_queries)
+            if status != 200:
+                raise RuntimeError(f"/retrieve/batch answered {status}")
+            assert_none_deleted(data["results"], f"after DELETE {call_id}")
+            now = stats()
+            if (now["chunks"]["tombstones"] != len(gone_chunks)
+                    or now["artifact_chunks"]["tombstones"] != len(gone_artifacts)):
+                raise RuntimeError(f"/index/stats tombstones {now} != "
+                                   f"{len(gone_chunks)}, {len(gone_artifacts)}")
+        for path in (f"/calls/{targets[0][0]}", f"/calls/{targets[-1][0]}"):
+            for method in ("DELETE", "GET"):
+                status, _body = http_json(port, method, path)
+                if status != 404:
+                    raise RuntimeError(f"{method} {path} of a deleted call: {status}")
+        out["delete"] = {
+            "calls": len(targets), "chunks": len(gone_chunks),
+            "artifact_chunks": len(gone_artifacts),
+            "p50_ms": float(np.median(delete_ms)),
+            "one_chunk_call_p50_ms": float(np.median(delete_ms[:WORKER_DELETES])),
+            "synthetic_call_p50_ms": float(np.median(delete_ms[WORKER_DELETES:])),
+            "max_ms": max(delete_ms)}
+        take_launches()
+        out["kernels_tombstoned"] = [
+            check_kernels_on_corpus(corpus, index.call_capacity, concurrency, 40 + i)
+            for i, corpus in enumerate((index.chunks, index.artifacts))]
+        fused_scan.launches = 0
+        range_topk.launches = 0
+
+        # 3. compaction under traffic: delete_ids up to just under the 25%
+        # threshold of both corpora, then the DELETE that crosses both
+        final = next(s_ for s_ in range(N_CALLS) if s_ not in synthetic)
+        final_chunks, final_artifacts = call_rows(final)
+        bulk = {}
+        for corpus, n_rows, gone, last in (
+                (index.chunks, n_chunks, gone_chunks, final_chunks),
+                (index.artifacts, n_artifacts, gone_artifacts, final_artifacts)):
+            threshold = max(int(corpus.count * 0.25), 64)
+            need = threshold - corpus.tombstones - len(last) // 2
+            ids = np.arange(1, n_rows + 1)
+            free = ids[~np.isin((ids - 1) % N_CALLS, synthetic + [final])]
+            if need <= 0 or need > free.size or not last:
+                raise RuntimeError(f"{corpus.name}: cannot reach the compaction "
+                                   f"threshold {threshold} from {corpus.tombstones}")
+            bulk[corpus.name] = free[:need]
+        ids_only = lambda r: [{"query": q, "return_style": "ids_only"}
+                              for q in unique_queries(concurrency, 5000 + r)]
+
+        def under_traffic(name, action):
+            """Run ``action`` while the client process sends rounds. ->
+            (rounds, action's result, its start and end on the wall clock)"""
+            box = {}
+
+            def send():
+                try:
+                    box["rounds"] = http_rounds(port, "/retrieve", ids_only,
+                                                traffic_rounds, workdir)
+                except Exception as exc:
+                    box["error"] = exc
+
+            sender = threading.Thread(target=send, name=name)
+            served = len(dispatches.calls)
+            box["t0"] = time.time()
+            sender.start()
+            # the client is up and its second round has been dispatched
+            wait_for(lambda: "error" in box or len(dispatches.calls) > served + 1,
+                     "the client's traffic")
+            began = time.time()
+            result = action()
+            ended = time.time()
+            sender.join(900)
+            box["t1"] = time.time()
+            if "error" in box:
+                raise box["error"]
+            if not (box["t0"] < began and ended < box["t1"]):
+                raise RuntimeError(f"{name}: the traffic ended before the write did")
+            return box["rounds"], result, (began - box["t0"], ended - box["t0"])
+
+        def tombstone_bulk():
+            t = time.perf_counter()
+            index.chunks.delete_ids(bulk["chunks"].tolist())
+            mid = time.perf_counter()
+            index.artifacts.delete_ids(bulk["artifact_chunks"].tolist())
+            return mid - t, time.perf_counter() - mid
+
+        bulk_rounds, bulk_s, _window = under_traffic("bulk tombstones", tombstone_bulk)
+        gone_chunks |= set(bulk["chunks"].tolist())
+        gone_artifacts |= set(bulk["artifact_chunks"].tolist())
+        now = stats()
+        if (now["chunks"]["tombstones"] != len(gone_chunks)
+                or now["artifact_chunks"]["tombstones"] != len(gone_artifacts)):
+            raise RuntimeError(f"tombstones after the bulk delete: {now}")
+
+        def crossing_delete():
+            t = time.perf_counter()
+            status, body = http_json(port, "DELETE", f"/calls/{call_uuid(final)}",
+                                     timeout=600)
+            return status, body, (time.perf_counter() - t) * 1e3
+
+        compact_rounds, (status, body, crossing_ms), window = under_traffic(
+            "compaction", crossing_delete)
+        if status != 200 or not body["compacted"]:
+            raise RuntimeError(f"the crossing DELETE did not compact: {status} {body}")
+        gone_chunks |= final_chunks
+        gone_artifacts |= final_artifacts
+        if sorted(r["corpus"] for r in compactions.records) != [
+                "artifact_chunks", "chunks"]:
+            raise RuntimeError(f"compactions: {compactions.records}")
+        after = stats()
+        live = {"chunks": rows1["chunks"]["count"] - len(gone_chunks),
+                "artifact_chunks": rows1["artifact_chunks"]["count"] - len(gone_artifacts)}
+        for name, want in live.items():
+            if after[name]["tombstones"] != 0 or after[name]["count"] != want:
+                raise RuntimeError(f"after the compaction {name}: {after[name]}, "
+                                   f"want count {want}, tombstones 0")
+        if (index.chunks.count, index.artifacts.count) != (
+                live["chunks"], live["artifact_chunks"]):
+            raise RuntimeError("the index's counts differ from /index/stats")
+        # every surviving known row first, no deleted id in any answer
+        survivors = ([(t, i) for t, i in zip(known_texts, known_ids)]
+                     + [(texts[i], new_rows[i][1])
+                        for i in range(WORKER_DELETES, N_BUNDLES)])
+        final_bodies = ([{"query": t, "return_style": "ids_only"} for t, _i in survivors]
+                        + probes + packs + new_queries[:WORKER_DELETES])
+        res = http_rounds(port, "/retrieve", lambda r: final_bodies, 2, workdir)
+        for _w, round_ in res:
+            answers = [d for _s, _l, d in round_]
+            assert_none_deleted(answers, "after the compaction")
+            firsts = [d["retrieved_ids"][:1] for d in answers[:len(survivors)]]
+            want = [[f"chunk:{i}"] for _t, i in survivors]
+            if firsts != want:
+                wrong = [(w, g) for w, g in zip(want, firsts) if w != g]
+                raise RuntimeError(f"after the compaction {len(wrong)} known rows "
+                                   f"are not first, e.g. {wrong[0]}")
+        status, _body = http_json(port, "GET", f"/calls/{call_uuid(final)}")
+        if status != 404:
+            raise RuntimeError(f"GET of the deleted call answered {status}")
+
+        def latency(rounds):
+            lat = np.array([l for _w, res_ in rounds for _s, l, _d in res_]) * 1e3
+            return {"p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "max_ms": float(lat.max()), "requests": int(lat.size),
+                    "longest_round_ms": max(w for w, _r in rounds) * 1e3}
+
+        out["bulk_tombstones"] = {
+            "chunks": int(bulk["chunks"].size),
+            "artifact_chunks": int(bulk["artifact_chunks"].size),
+            "chunks_s": bulk_s[0], "artifact_chunks_s": bulk_s[1],
+            "traffic": latency(bulk_rounds)}
+        out["compaction"] = {
+            "crossing_delete_ms": crossing_ms, "window_s": window,
+            "records": compactions.records, "traffic": latency(compact_rounds),
+            "count_after": live, "known_first": len(survivors),
+            "deleted_chunks": len(gone_chunks),
+            "deleted_artifact_chunks": len(gone_artifacts)}
+        take_launches()
+        out["launches"] = dict(launches)
+        out["dispatched"] = sorted(set(dispatches.take()))
+        out["corpora"] = {
+            name: {"rows": corpus.count, "dim": corpus.dim, "lex_dim": corpus.lex_dim,
+                   "slots": corpus.tech.shape[1], "emb_dtype": corpus.emb_dtype}
+            for name, corpus in (("chunks", index.chunks),
+                                 ("artifacts", index.artifacts))}
+        # 4. K1 and K3 on the compacted tensors
+        out["kernels_compacted"] = [
+            check_kernels_on_corpus(corpus, index.call_capacity, concurrency, 50 + i)
+            for i, corpus in enumerate((index.chunks, index.artifacts))]
+    finally:
+        compactions.close()
+        if worker is not None:
+            worker.kill()
+            worker.wait(timeout=60)
+        stop()
+    return out
+
+
+def run_int8_served(device, n_chunks, n_artifacts, batch, n_known):
+    """An index that stores int8 embeddings (``INDEX_EMBEDDING_DTYPE=int8``)
+    serves one batch through the engine: synthetic corpora plus known rows,
+    ``batch`` ids_only requests naming them; the chunks must be planned ann
+    with the dense lane on, and every known row must come first."""
+    import shutil
+    import tempfile
+
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
+    from cadence_rag_tpu_torch.evals.synth import (
+        insert_text_rows, install_synthetic_corpus,
+    )
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
+    from cadence_rag_tpu_torch.store.db import reset_store
+
+    device = torch.device(device)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_"))
+    overrides = {"store_path": str(workdir / "int8.db"), "embeddings_provider": "stub",
+                 "embeddings_base_url": "", "index_embedding_dtype": "int8"}
+    saved = {key: getattr(settings, key) for key in overrides}
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    try:
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        index = core_index.get_index(device)
+        if index.chunks.emb.dtype != torch.int8:
+            raise RuntimeError(f"the index stores {index.chunks.emb.dtype}, not int8")
+        index.ensure_call_capacity(N_CALLS)
+        install_synthetic_corpus(index.chunks, n_chunks, N_CALLS, seed=0)
+        install_synthetic_corpus(index.artifacts, n_artifacts, N_CALLS, seed=1)
+        texts, tokens = known_rows(n_known)
+        insert_text_rows(index.chunks, texts, tokens, doc_id0=KNOWN_ID0,
+                         call_seq=KNOWN_CALL, started0=KNOWN_STARTED)
+        dispatches = DispatchLog(index)
+        t0 = time.perf_counter()
+        answers = retrieve_evidence_batch([
+            RetrieveRequest(query=texts[j % n_known], return_style="ids_only")
+            for j in range(batch)])
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        modes = {(cm, dense_on) for cm, _am, _b, dense_on, _w in dispatches.take()}
+        if modes != {("ann", True)}:
+            raise RuntimeError(f"the int8 batch dispatched {modes}, not ann with "
+                               "the dense lane on")
+        got = [a["retrieved_ids"][:1] for a in answers]
+        want = [[f"chunk:{KNOWN_ID0 + j % n_known}"] for j in range(batch)]
+        if got != want:
+            wrong = [(w, g) for w, g in zip(want, got) if w != g]
+            raise RuntimeError(f"int8: {len(wrong)} known rows not first, e.g. {wrong[0]}")
+        return {"rows": index.chunks.count, "capacity": index.chunks.capacity,
+                "artifact_rows": index.artifacts.count, "batch": batch,
+                "first_batch_ms": batch_ms, "known_first": len(want)}
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        core_index.reset_index()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -1400,10 +2061,14 @@ def main(argv=None) -> int:
             for name, *_ in batches)
         + f"; every known row first; launches {launches}")
 
-    serve = run_serve(device, 1_000_000, 100_000)
+    serve = run_serve(device, 1_000_000, 100_000, write_rounds=60)
     details["serve"] = serve
     if min(serve["launches"].values()) <= 0:
         raise RuntimeError(f"the served path did not launch K1 and K3: {serve['launches']}")
+    writes = serve["writes"]
+    if min(writes["launches"].values()) <= 0:
+        raise RuntimeError(
+            f"the writes phase did not launch K1 and K3: {writes['launches']}")
     prof = serve["profiled_round"]
     log(f"serve: 1M chunks + 100k artifacts, store rows and {N_KNOWN} known rows "
         f"ingested, set up in {serve['setup_s']:.1f} s ("
@@ -1426,12 +2091,69 @@ def main(argv=None) -> int:
         + " | scoped packs " + ", ".join(
             f"{k} {v:.2f}" for k, v in serve["split_scoped"].items())
         + " | QPS " + ", ".join(f"{k} {v:.0f}" for k, v in serve["engine_qps"].items()))
+    log(f"featurizer ({smi}), engine stage spans of an ids_only batch of 128, ms: "
+        "native C++ (native/lexhash.cpp) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in serve["split_ids_only"].items())
+        + " | pure Python (ops/hashing.py), same run "
+        + ", ".join(f"{k} {v:.2f}" for k, v in serve["split_ids_only_python"].items()))
+    sync, deletes, comp = writes["sync"], writes["delete"], writes["compaction"]
+    gib = lambda b: b / 2**30
+    log(f"writes ({smi}): second startup (reconcile of the populated index, syncer "
+        f"every {sync['interval_s']} s) {writes['startup_s']:.1f} s; worker child "
+        f"ingested {sync['bundles']} bundles store-only in {writes['worker_s']:.1f} s; "
+        f"every synced row first; lag from a job's end to the first answer holding "
+        f"its row min {sync['lag_from_job_end_s']['min']:.3f} p50 "
+        f"{sync['lag_from_job_end_s']['p50']:.3f} max "
+        f"{sync['lag_from_job_end_s']['max']:.3f} s (from the job's start p50 "
+        f"{sync['lag_from_job_start_s']['p50']:.3f} s); DELETE /calls/{{id}} x"
+        f"{deletes['calls']} ({deletes['chunks']} chunks, {deletes['artifact_chunks']} "
+        f"artifact chunks) p50 {deletes['p50_ms']:.1f} ms (one-chunk calls "
+        f"{deletes['one_chunk_call_p50_ms']:.1f} ms, synthetic calls of ~977 chunks "
+        f"{deletes['synthetic_call_p50_ms']:.1f} ms), no deleted id in any answer")
+    bulk = writes["bulk_tombstones"]
+    log(f"writes, under 128 concurrent /retrieve: delete_ids of {bulk['chunks']} "
+        f"chunks {bulk['chunks_s']:.2f} s and {bulk['artifact_chunks']} artifact "
+        f"chunks {bulk['artifact_chunks_s']:.2f} s (requests p50 "
+        f"{bulk['traffic']['p50_ms']:.1f} ms, longest {bulk['traffic']['max_ms']:.1f} "
+        f"ms); the crossing DELETE {comp['crossing_delete_ms']:.1f} ms with "
+        + "; ".join(
+            f"{r['corpus']} compacted {r['rows_before']} -> {r['rows_after']} rows "
+            f"(capacity {r['capacity']}) in {r['seconds'] * 1e3:.1f} ms, peak "
+            f"{gib(r['peak_bytes']):.2f} GiB over {gib(r['held_bytes']):.2f} GiB held"
+            for r in comp["records"])
+        + f"; requests across it p50 {comp['traffic']['p50_ms']:.1f} ms, p99 "
+        f"{comp['traffic']['p99_ms']:.1f} ms, longest {comp['traffic']['max_ms']:.1f} "
+        f"ms; afterwards tombstones 0, counts {comp['count_after']}, "
+        f"{comp['known_first']} known rows first, no deleted id; launches "
+        f"{writes['launches']}")
     log("gate (real, fixtures, on the card): " + ", ".join(
         f"{k} {serve['gate'][k]:.4f} (floor {floor})" for k, floor in GATE_FLOORS.items()))
     details["served_shapes"] = check_served_shapes(
         device, serve["dispatched"], serve["corpora"], seed=20)
+    # the writes phase's shapes at the compacted, ragged row counts
+    details["written_shapes"] = check_served_shapes(
+        device, writes["dispatched"], writes["corpora"], seed=60)
+    on_index = writes["kernels_tombstoned"] + writes["kernels_compacted"]
+    log("writes: K1 and K3 against their plain versions on the index's own "
+        "tensors: " + "; ".join(
+            f"{r['corpus']} {r['rows']} rows ({r['live']} live of {r['count']}) "
+            f"batch {r['batch']} |err| {r['max_abs_err']:.3g}" for r in on_index))
     k1_err = max(details["k1"]["max_abs_err"], details["k1_ragged_int8"]["max_abs_err"],
-                 details["served_shapes"]["k1_max_abs_err"])
+                 details["served_shapes"]["k1_max_abs_err"],
+                 details["written_shapes"]["k1_max_abs_err"],
+                 *(r["max_abs_err"] for r in on_index))
+
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    details["int8"] = run_int8_served(device, 300_037, 30_011, 128, N_KNOWN)
+    int8_launches = {"fused_scan": fused_scan.launches, "tech_topk": range_topk.launches}
+    if min(int8_launches.values()) <= 0:
+        raise RuntimeError(f"the int8 batch did not launch K1 and K3: {int8_launches}")
+    log(f"int8: an index of {details['int8']['rows']} int8 chunks (capacity "
+        f"{details['int8']['capacity']}) and {details['int8']['artifact_rows']} "
+        f"artifacts served a batch of {details['int8']['batch']} through the engine "
+        f"(planned ann, first batch {details['int8']['first_batch_ms']:.1f} ms): "
+        f"every known row first; launches {int8_launches}")
 
     details["k2"] = check_k2(device, 1_048_576, 128, 1024, "contiguous", seed=4, reps=5)
     details["k2_random"] = check_k2(device, 1_048_576, 128, 1024, "random",
@@ -1451,6 +2173,7 @@ def main(argv=None) -> int:
                        "fused_scan": fused_scan.launches}
     if min(recall_launches.values()) <= 0:
         raise RuntimeError(f"the recall gate did not launch K1 and K2: {recall_launches}")
+    details["ann_recall_table"] = check_recall_table(details["recall"]["gate"], smi)
 
     fused_scan.launches = 0
     range_topk.launches = 0
@@ -1484,13 +2207,19 @@ def main(argv=None) -> int:
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
-         "launches": serve["launches"]["fused_scan"], "max_abs_err": k1_err,
+         "launches": serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"],
+         "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
+                               "writes": writes["launches"]["fused_scan"]},
+         "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "tech_topk", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
-         "launches": serve["launches"]["tech_topk"], "max_abs_err": k3["max_abs_err"],
+         "launches": serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"],
+         "launches_by_phase": {"serve": serve["launches"]["tech_topk"],
+                               "writes": writes["launches"]["tech_topk"]},
+         "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
         {"name": "dense_scan", "route": "cuda",

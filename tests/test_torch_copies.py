@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's host modules give the package's
-results: settings, feature hashing, featurization, the stub embedder and the
-native RRF merge and HNSW graph, on seeded inputs, bit for bit.
+results: settings, feature hashing, featurization (pure Python and the
+native C++ featurizer), the stub embedder and the native RRF merge and HNSW
+graph, on seeded inputs, bit for bit.
 
 This module also builds the JAX package's HNSW library once before
 ``tests/unit`` is collected (it is collected first: files are collected in
@@ -24,12 +25,14 @@ from cadence_rag_tpu import config as jconfig
 from cadence_rag_tpu.embed.stub import HashEmbeddingProvider as JaxStub
 from cadence_rag_tpu.ingest import featurize as jfeaturize
 from cadence_rag_tpu.native import hnsw as jhnsw
+from cadence_rag_tpu.native import lexhash as jlexhash
 from cadence_rag_tpu.native import rrf as jrrf
 from cadence_rag_tpu.ops import hashing as jhashing
 from cadence_rag_tpu_torch import config as tconfig
 from cadence_rag_tpu_torch.embed.stub import HashEmbeddingProvider as PortStub
 from cadence_rag_tpu_torch.ingest import featurize as tfeaturize
 from cadence_rag_tpu_torch.native import hnsw as thnsw
+from cadence_rag_tpu_torch.native import lexhash as tlexhash
 from cadence_rag_tpu_torch.native import rrf as trrf
 from cadence_rag_tpu_torch.ops import hashing as thashing
 
@@ -252,6 +255,7 @@ VERBATIM = [
     "schemas/ingest.py", "schemas/retrieve.py", "schemas/responses.py",
     "utils/timeutil.py", "utils/errors.py", "utils/locks.py", "logging_utils.py",
     "evals/metrics.py", "evals/fixtures.py", "serve/metrics.py",
+    "ingest/adapters.py", "ingest/docformats.py", "scripts/__init__.py",
 ]
 REPO = Path(__file__).resolve().parent.parent
 
@@ -261,6 +265,19 @@ def test_verbatim_copies(path):
     """Modules the port copies unchanged: the same text."""
     port = (REPO / "cadence_rag_tpu_torch" / path).read_text()
     assert port == (REPO / "cadence_rag_tpu" / path).read_text()
+
+
+def test_fs_queue_is_the_original_but_for_one_docstring_line():
+    """``ingest/fs_queue.py`` is the JAX package's file with one line of the
+    module docstring reworded and nothing else changed."""
+    port = (REPO / "cadence_rag_tpu_torch/ingest/fs_queue.py").read_text().splitlines()
+    orig = (REPO / "cadence_rag_tpu/ingest/fs_queue.py").read_text().splitlines()
+    assert len(port) == len(orig)
+    differ = [(a, b) for a, b in zip(orig, port) if a != b]
+    assert differ == [(
+        "TPU-native difference: Redis/RQ is replaced by a durable SQLite queue table",
+        "Difference from the reference: Redis/RQ is replaced by a durable SQLite queue table",
+    )]
 
 
 def test_chunking_matches():
@@ -413,3 +430,121 @@ def test_bulk_store_rows_match(tmp_path):
                 for t in ("chunks", "artifact_chunks")]))
         store.close()
     assert dumps[0] == dumps[1]
+
+
+# -- native/lexhash: the cases of tests/unit/test_native.py, on both ------------------
+LEX_CASES = [
+    "the ECONNRESET storm started after the object store upgrade",
+    "rolling back to v2.3.1 stopped the resets immediately",
+    "short",
+    "",
+    "   whitespace   collapse\t\ttest\n\nlines   ",
+    "unicode naïve café 模型 text mixed with ascii_words_123",
+    "repeated repeated repeated repeated tokens tokens tokens",
+    "a b c d e f g h i j k l m n o p q r s t u v w x y z",
+    "punctuation!!! and, some; (symbols) [here] {ok}",
+    "x" * 5000,
+]
+TOKEN_CASES = [
+    [],
+    ["svc-gateway.prod"],
+    ["svc-gateway.prod", "API-V2.3.1", "econnreset"],
+    ["dup", "DUP", "  dup  ", ""],
+    [f"tok-{i}.x" for i in range(20)],
+    ["naïve-café.模型", "plain_token"],
+    ["a"] * 50,
+    [f"collide-{i}" for i in range(40)] + ["svc-gateway.prod"],
+]
+
+
+def _same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == y.dtype
+        else:
+            assert x == y
+
+
+def test_native_lexhash_builds_into_the_build_dir():
+    from cadence_rag_tpu_torch.native.build import NATIVE_DIR, library_path
+
+    assert tlexhash.available() and jlexhash.available()
+    lib = library_path(Path(tlexhash.__file__).with_name("lexhash.cpp"), ("-O3",))
+    assert lib.parent == NATIVE_DIR and lib.is_file()
+    assert tfeaturize.native_available()
+
+
+@pytest.mark.parametrize("dim", [512, 1024, 4096])
+@pytest.mark.parametrize("avgdl", [1.0, 40.0, 1500.0])
+def test_native_lexhash_signature_bit_parity(dim, avgdl):
+    """The port's native signature = the port's pure-Python featurizer = the
+    JAX package's native and pure-Python ones."""
+    for text in LEX_CASES:
+        got = tlexhash.doc_signature(text, dim, avgdl)
+        _same(got, thashing.doc_signature_from_raw(
+            *thashing.raw_feature_arrays(text), dim, avgdl))
+        _same(got, jlexhash.doc_signature(text, dim, avgdl))
+        _same(got, jhashing.doc_signature(text, dim, avgdl))
+
+
+@pytest.mark.parametrize("dim", [512, 4096])
+def test_native_lexhash_query_and_raw_features_bit_parity(dim):
+    for text in LEX_CASES:
+        got = tlexhash.query_features(text, dim)
+        _same(got, thashing.query_feature_arrays(text, dim))
+        _same(got, jlexhash.query_features(text, dim))
+        raw = tlexhash.raw_features(text)
+        _same(raw, thashing.raw_feature_arrays(text))
+        _same(raw, jlexhash.raw_features(text))
+
+
+def test_native_lexhash_batches_match_the_single_calls():
+    for got, text in zip(tlexhash.query_features_batch(LEX_CASES, 4096), LEX_CASES):
+        _same(got, tlexhash.query_features(text, 4096))
+    for got, want in zip(tlexhash.query_features_batch(LEX_CASES, 4096),
+                         jlexhash.query_features_batch(LEX_CASES, 4096)):
+        _same(got, want)
+    for got, text in zip(tlexhash.raw_features_batch(LEX_CASES), LEX_CASES):
+        _same(got, tlexhash.raw_features(text))
+    assert tlexhash.query_features_batch([], 4096) == []
+    assert tlexhash.raw_features_batch([]) == []
+    assert tlexhash.query_features_batch([""], 4096)[0][0].size == 0
+
+
+@pytest.mark.parametrize("slots,cap0,max_cap", [(16, 1, 8), (16, 2, 8), (8, 1, 4)])
+def test_native_lexhash_tech_structures(slots, cap0, max_cap):
+    got = tlexhash.tech_structures_batch(TOKEN_CASES, slots, cap0, max_cap)
+    want = jlexhash.tech_structures_batch(TOKEN_CASES, slots, cap0, max_cap)
+    for tokens, g, w in zip(TOKEN_CASES, got, want):
+        _same(g, w)
+        _same(g, thashing.tech_query_structure(tokens, slots, cap0,
+                                               max_capacity=max_cap))
+
+
+def test_featurize_dispatches_to_the_native_featurizer(monkeypatch):
+    """The batch entry points call the native library when it is built and
+    the pure-Python reference when it is not, with the same bits."""
+    texts = _texts(21, 40) + LEX_CASES
+    tokens = _token_lists(22, 40) + TOKEN_CASES
+    calls = []
+    for name in ("raw_features_batch", "query_features_batch",
+                 "tech_structures_batch"):
+        inner = getattr(tlexhash, name)
+        monkeypatch.setattr(tlexhash, name, lambda *a, _f=inner, _n=name, **k:
+                            (calls.append(_n), _f(*a, **k))[1])
+    native = (tfeaturize.lexical_signatures_batch(texts, 9.0),
+              tfeaturize.query_lexical_features_batch(texts),
+              tfeaturize.query_tech_structures_batch(tokens))
+    assert calls == ["raw_features_batch", "query_features_batch",
+                     "tech_structures_batch"]
+    monkeypatch.setattr(tlexhash, "available", lambda: False)
+    assert not tfeaturize.native_available()
+    plain = (tfeaturize.lexical_signatures_batch(texts, 9.0),
+             tfeaturize.query_lexical_features_batch(texts),
+             tfeaturize.query_tech_structures_batch(tokens))
+    assert len(calls) == 3
+    for got, want in zip(native, plain):
+        for g, w in zip(got, want):
+            _same(g, w)

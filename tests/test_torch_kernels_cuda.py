@@ -350,3 +350,103 @@ def test_served_fixture_corpus_card_matches_cpu(cuda, tmp_path, monkeypatch):
         reset_index()
     assert all(ids for ids in served["cuda"][0])
     assert served["cuda"] == served["cpu"]
+
+
+def test_startup_pins_full_precision_f32_matmul(tmp_path, monkeypatch):
+    """A process that asked for TF32 matmuls before it started the server:
+    ``startup`` on the card turns TF32 off again, and an ``ivf`` batch (the
+    lane that scores f32 queries) gives the plain f32 answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import get_index, reset_index
+    from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
+    from cadence_rag_tpu_torch.evals.fixtures import ingest_fixtures
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
+    from cadence_rag_tpu_torch.serve.api import startup
+    from cadence_rag_tpu_torch.store.db import reset_store
+
+    for name, value in (("embeddings_provider", "stub"), ("embeddings_base_url", ""),
+                        ("store_sync_interval_s", 0.0), ("index_initial_capacity", 256),
+                        ("store_path", str(tmp_path / "tf32.db"))):
+        monkeypatch.setattr(settings, name, value)
+    before = torch.get_float32_matmul_precision()
+    try:
+        reset_store()
+        reset_index()
+        reset_syncer()
+        torch.set_float32_matmul_precision("high")
+        assert torch.backends.cuda.matmul.allow_tf32
+        startup("cuda")
+        assert not torch.backends.cuda.matmul.allow_tf32
+        ingest_fixtures()
+        run_embedding_backfill(batch_size=16)
+        chunks = get_index().chunks
+        n = chunks.count
+        state = chunks.build_ivf(n_clusters=4, nprobe=4)    # every cluster probed
+        assert state.built_count == n
+        rng = np.random.default_rng(5)
+        q = rng.standard_normal((16, chunks.dim)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        batch = q.shape[0]
+        vals, pos = chunks.ivf_dense_query(
+            q, np.ones((batch, get_index().call_capacity), dtype=bool),
+            np.full(batch, INT32_MIN + 1, np.int32),
+            np.full(batch, 2**31 - 1, np.int32), k=10)
+        # the plain f32 answer: f64 products of the f32 query and the stored rows
+        rows = chunks.emb[:n].float().cpu().numpy().astype(np.float64)
+        scores = q.astype(np.float64) @ rows.T
+        scores[:, ~chunks.h_has_emb[:n]] = -np.inf
+        want = -np.sort(-scores, axis=1)[:, :10]
+        got = vals.cpu().numpy()
+        assert np.isfinite(got).all() and np.abs(got - want).max() < 2e-6
+        np.testing.assert_array_equal(
+            np.take_along_axis(scores, pos.cpu().numpy(), axis=1) >= want[:, -1:] - 2e-6,
+            True)
+    finally:
+        torch.set_float32_matmul_precision(before)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        reset_store()
+        reset_index()
+        reset_syncer()
+
+
+@pytest.mark.parametrize("emb_dtype", ["bfloat16", "int8"])
+def test_index_writes_card_matches_cpu(cuda, emb_dtype):
+    """Inserts, tombstones, scatters and a compaction on the card give the
+    arrays the same operations give on the CPU, bit for bit."""
+    from cadence_rag_tpu_torch.core.index import CorpusIndex, DocRow
+
+    rng = np.random.default_rng(11)
+    rows = []
+    for i in range(700):
+        vec = rng.standard_normal(64).astype(np.float32)
+        sig = rng.integers(-4, 5, size=256).astype(np.int8)
+        rows.append(DocRow(
+            doc_id=i + 1, call_seq=int(rng.integers(0, 9)),
+            started_sec=int(rng.integers(1_600_000_000, 1_700_000_000)),
+            lex_sig=sig, lex_dl=int(rng.integers(3, 30)),
+            lex_touched=np.flatnonzero(sig).astype(np.int32),
+            tech=rng.integers(0, 2**31 - 1, size=16).astype(np.int32),
+            embedding=None if i % 5 == 0 else vec / np.linalg.norm(vec)))
+    states = []
+    for device in (cuda, torch.device("cpu")):
+        corpus = CorpusIndex("chunks", dim=64, lex_dim=256, tech_slots=16,
+                             capacity=64, device=device, emb_dtype=emb_dtype)
+        corpus.insert(rows[:400])
+        corpus.insert(rows[400:])
+        ids = list(range(50, 300))
+        assert corpus.delete_ids(ids + [9999], None, None) == 250
+        corpus.set_tech([1, 2, 60], np.arange(48, dtype=np.int32).reshape(3, 16))
+        corpus.set_embeddings([1, 6], np.eye(64, dtype=np.float32)[:2])
+        corpus.set_lex([3, 4], np.ones((2, 256), dtype=np.int8))
+        before = corpus.state_arrays()
+        assert corpus.maybe_compact() and corpus.tombstones == 0
+        assert corpus.count == 450 and not corpus.contains([50, 299]).any()
+        corpus.insert(rows[50:60])                 # deleted ids: refused
+        assert corpus.count == 450
+        states.append((before, corpus.state_arrays(), corpus.capacity, corpus.emb_rows))
+    for got, want in zip(states[0][:2], states[1][:2]):
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert states[0][2:] == states[1][2:]

@@ -10,7 +10,10 @@ both packed dispatches), the IVF batch (build, planned "ivf", served by
 IVF), and the recall gate (ann, pallas, ivf, hnsw) with the filtered-recall
 sweep. The second allows the HTTP stack (the machine with the card has it):
 every module imports, the in-process client serves the fixture corpus, and
-chip_smoke.py's serve phase runs over a localhost socket at a tiny size.
+chip_smoke.py's serve phase runs over a localhost socket at a tiny size,
+its ``writes`` phase included (the scanner and the worker as child processes
+that block jax too, the syncer, deletes over HTTP, a compaction under
+traffic), then the int8 batch.
 """
 
 import json
@@ -94,11 +97,14 @@ def test_port_runs_without_jax_pydantic_http():
         "cadence_rag_tpu_torch.embed.stub",
         "cadence_rag_tpu_torch.native.rrf",
         "cadence_rag_tpu_torch.native.hnsw",
+        "cadence_rag_tpu_torch.native.lexhash",
+        "cadence_rag_tpu_torch.ingest.docformats",
     }
     assert expected <= set(out["modules"])
     # only the request path's modules need the HTTP stack
     http_side = ("schemas", "serve", "engine.retrieve", "engine.filters",
-                 "ingest.chunking", "ingest.ingest", "embed.client", "embed.pipeline")
+                 "ingest.chunking", "ingest.ingest", "embed.client", "embed.pipeline",
+                 "ingest.adapters", "ingest.fs_queue", "ingest.sync", "scripts")
     assert out["need_http"] and all(
         name.split(".", 1)[1].startswith(http_side) for name in out["need_http"])
     # unscoped chunks plan ann, the scoped batch plans exact
@@ -159,13 +165,26 @@ resp = client.post("/retrieve", json={"query": "what caused the ECONNRESET error
 import chip_smoke
 serve = chip_smoke.run_serve("cpu", 5000, 600, concurrency=16, cold_rounds=1,
                              warm_rounds=1, bench_iters=1, profile=False,
-                             window_ms=50)
+                             window_ms=50, write_rounds=30)
+writes = serve["writes"]
+int8 = chip_smoke.run_int8_served("cpu", 3000, 300, 8, 4)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 print(json.dumps({"modules": len(modules), "loaded": loaded,
                   "status": resp.status_code, "ids": resp.json()["retrieved_ids"][:3],
                   "known_first": serve["known_first"],
-                  "batched_max": serve["batched_max"], "gate": serve["gate"]}))
+                  "batched_max": serve["batched_max"], "gate": serve["gate"],
+                  "native": sorted(serve["split_ids_only"]) == sorted(
+                      serve["split_ids_only_python"]),
+                  "sync": writes["sync"]["bundles"],
+                  "deleted": writes["delete"]["calls"],
+                  "compacted": [(r["corpus"], r["rows_before"], r["rows_after"])
+                                for r in writes["compaction"]["records"]],
+                  "count_after": writes["compaction"]["count_after"],
+                  "known_after": writes["compaction"]["known_first"],
+                  "on_index": [r["rows"] for r in writes["kernels_tombstoned"]
+                               + writes["kernels_compacted"]],
+                  "int8": int8["known_first"]}))
 """
 
 
@@ -181,8 +200,19 @@ def test_port_serves_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    assert out["modules"] >= 60
+    assert out["modules"] >= 70
     assert out["status"] == 200 and out["ids"][0].startswith(("chunk:", "artifact_chunk:"))
     assert out["known_first"] == 16
     assert out["batched_max"] > 1
     assert out["gate"]["mrr"] >= 0.60 and out["gate"]["recall@20"] >= 0.80
+    # the writes phase: 16 synced bundles, 12 calls deleted over HTTP, both
+    # corpora compacted inside the crossing DELETE to their live rows, the
+    # 16 ingested and 12 surviving synced known rows first afterwards
+    assert out["native"] and out["sync"] == 16 and out["deleted"] == 12
+    chunks, artifacts = out["compacted"]
+    assert chunks[0] == "chunks" and artifacts[0] == "artifact_chunks"
+    assert chunks[1] == 5032 and chunks[2] == out["count_after"]["chunks"] < 0.76 * 5032
+    assert artifacts[2] == out["count_after"]["artifact_chunks"] < 0.76 * 601
+    assert out["known_after"] == 28
+    assert out["on_index"] == [8192, 1024, 4096, 512]
+    assert out["int8"] == 8

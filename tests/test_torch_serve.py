@@ -5,8 +5,8 @@ Both packages serve through their in-process router clients
 ingest requests and answer the same reads and retrievals; one test drives
 the port's aiohttp server over a real socket with the micro-batcher on. The
 port's ``startup`` must raise for every setting whose feature is not ported,
-and for a card that is not there; the routes it does not serve yet answer
-404 and say so.
+and for a card that is not there; no route is left unserved: the routes
+that once answered "not ported" answer as the JAX package's do.
 """
 
 import asyncio
@@ -37,7 +37,7 @@ NOT_PORTED = [
     ("DELETE", "/calls/00000000-0000-4000-8000-000000000001"),
 ]
 UNPORTED_SETTINGS = [
-    ("store_sync_interval_s", 1.0, "STORE_SYNC_INTERVAL_S"),
+    ("lex_vocab_auto_rebuild", True, "LEX_VOCAB_AUTO_REBUILD"),
     ("rerank_enabled", True, "RERANK_ENABLED"),
     ("dist_coordinator", "localhost:1234", "DIST_COORDINATOR"),
     ("mesh_shape", "data:4", "MESH_SHAPE"),
@@ -119,7 +119,10 @@ def test_ingest_responses_match(seeded, clients):
                     "tombstones", "ivf_built"):
             assert p[corpus][key] == j[corpus][key], (corpus, key)
     assert p["call_capacity"] == j["call_capacity"]
-    assert {"prewarm_compiled", "sync"}.isdisjoint(p)
+    assert "prewarm_compiled" not in p
+    # both syncers stand at their store's newest mutation
+    assert p["sync"].keys() == j["sync"].keys()
+    assert p["sync"]["store_seq"] == j["sync"]["store_seq"] > 0
 
 
 def test_reads_match(seeded, clients):
@@ -180,9 +183,13 @@ def test_request_errors_match(clients):
 
 @pytest.mark.parametrize("method,path", NOT_PORTED)
 def test_unported_routes_say_so(clients, method, path):
-    resp = clients[PORT.root].request(method, path)
-    assert resp.status_code == 404
-    assert "not ported" in resp.json()["detail"] and "ROADMAP" in resp.json()["detail"]
+    """No route is unported any more: the three that were (the job queue's
+    and DELETE /calls/{id}) answer what the JAX package answers, here for
+    an empty store."""
+    port, jax = _both(clients, method, path)
+    assert port.status_code == jax.status_code
+    assert port.json() == jax.json()
+    assert "not ported" not in str(port.json())
 
 
 @pytest.mark.parametrize("name,value,word", UNPORTED_SETTINGS)

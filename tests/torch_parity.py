@@ -20,6 +20,7 @@ import pytest
 
 from cadence_rag_tpu.config import settings as jax_settings
 from cadence_rag_tpu_torch.config import settings as port_settings
+from cadence_rag_tpu_torch.engine import planner as PORT_PLANNER
 
 DEBUG_SCORE_ATOL = 1e-5    # lane scores: f32 sums taken in another order
 RRF_SCORE_ATOL = 1e-6      # fused scores: f32 (device RRF) or f64 sums of 1/(60+r)
@@ -36,6 +37,8 @@ class Package:
             ("schemas", "schemas"), ("index", "core.index"),
             ("db", "store.db"), ("testing", "serve.testing"),
             ("real_gate", "evals.real_gate"), ("rrf", "native.rrf"),
+            ("sync", "ingest.sync"), ("fs_queue", "ingest.fs_queue"),
+            ("errors", "utils.errors"),
         ):
             setattr(self, attr, importlib.import_module(f"{root}.{name}"))
         self.settings = importlib.import_module(f"{root}.config").settings
@@ -75,15 +78,17 @@ def port_store(tmp_store, tmp_path, monkeypatch):
     for field in dataclasses.fields(port_settings):
         monkeypatch.setattr(port_settings, field.name, getattr(tmp_store, field.name))
     monkeypatch.setattr(port_settings, "store_path", str(tmp_path / "port.db"))
-    PORT.ingest.set_store_only(False)
-    PORT.db.reset_store()
-    PORT.index.reset_index()
-    PORT.provider.reset_embed_cache()
+    def reset():
+        PORT.ingest.set_store_only(False)
+        PORT.db.reset_store()
+        PORT.index.reset_index()
+        PORT.sync.reset_syncer()
+        PORT.provider.reset_embed_cache()
+
+    reset()
     PORT.index.get_index("cpu")
     yield port_settings
-    PORT.db.reset_store()
-    PORT.index.reset_index()
-    PORT.provider.reset_embed_cache()
+    reset()
 
 
 @pytest.fixture()
@@ -236,7 +241,10 @@ def assert_same_response(port_resp, jax_resp, want_pkg=JAX):
     assert_lanes_match(p_lanes, j_lanes)
     notes = port_resp.get("notes", {}).get("retrieval")
     if notes is not None:
-        assert notes["ann_expected_recall"] is None
+        # the port's own table of K1's recall on the card, flat in ef
+        want = (min(r for _case, r in PORT_PLANNER.MEASURED_ANN_RECALL)
+                if notes["hnsw_ef_search"] is not None else None)
+        assert notes["ann_expected_recall"] == want
 
 
 def assert_same_merged(port_plan, jax_plan):
