@@ -104,6 +104,8 @@ class Settings:
     prewarm_growth_enabled: bool = True
     prewarm_fill_fraction: float = 0.75
     prewarm_min_capacity: int = 65536
+    # the growth planner's memory budget where the device reports no free
+    # memory: the CPU's fallback (a card answers torch.cuda.mem_get_info)
     prewarm_hbm_budget_gb: float = 14.0
     embedder_params_path: str = ""
     qwen3_preset: str = "4b"

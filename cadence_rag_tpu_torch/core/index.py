@@ -13,9 +13,12 @@ rows into the existing buffers, a delete fills its rows' ``started`` and
 reallocate and copy), and the device program runs eagerly on PyTorch's
 current stream. The chunks corpus may carry an IVF index (``build_ivf``,
 single process): the planner's "ivf" mode serves the dense lane from it in
-a dispatch of its own, beside the packed program. Not ported here: the cold
-tier, growth prewarm/migration, the multi-host op-log and the gang IVF
-build.
+a dispatch of its own, beside the packed program. Rows past
+``INDEX_MAX_DEVICE_ROWS`` spill to the host cold tier (``core/coldtier.py``),
+whose blocks stream through the same lane program; capacity growth may run
+as a background ``GrowthMigration``; ``checkpoint_arrays`` and
+``load_state_streaming`` are the checkpoint's side (``core/checkpoint.py``).
+Not ported here: the multi-host op-log and the gang IVF build.
 
 Stream order. JAX arrays are immutable, so a queued program keeps the
 inputs it was given; here every writer (the batcher's engine thread, an
@@ -35,6 +38,9 @@ past its ``count``) or in fields it does not read (``h_started``,
 new arrays, so a dispatch made before it still maps its positions through
 the arrays it captured. The planner's ``estimate_candidates`` reads three
 mirrors and the count together, so it captures them under the corpus lock.
+The one thread off the default stream is a growth migration's: it works on a
+side stream, and only on buffers no other thread can reach before the swap
+(``GrowthMigration`` says how its reads of the live arrays are made good).
 
 Entry points the serving engine calls: ``DeviceIndexManager.
 query_both_packed_async`` (one packed H2D buffer, one device program, a
@@ -44,10 +50,13 @@ positions to doc ids).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +68,8 @@ from ..ops.hashing import query_vector_from_features
 from ..ops.ivf import build_buckets, ivf_topk, kmeans
 from ..ops.masks import filter_mask
 from ..ops.pack import (
+    _densify,
+    _unpack,
     dual_corpus_retrieve_packed,
     pack_queries,
     sparse_lex_rows,
@@ -66,6 +77,9 @@ from ..ops.pack import (
     unflatten_merged,
 )
 from ..utils import events
+from .coldtier import ColdTier, collect_cold, merge_rect_lanes
+
+logger = logging.getLogger(__name__)
 
 INT32_MIN = -2147483648
 INT32_MAX = 2147483647
@@ -73,6 +87,7 @@ INT32_MAX = 2147483647
 _EMB_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 # a corpus's device arrays, in the order ``device_arrays`` returns them
 DEVICE_ARRAYS = ("emb", "lex", "tech", "call_idx", "started", "has_emb")
+HOST_MIRRORS = ("h_ids", "h_call", "h_started", "h_has_emb")
 
 
 def _next_pow2(n: int, lo: int = 8) -> int:
@@ -168,6 +183,188 @@ class QuerySignature:
     fuse_rrf: bool = False
 
 
+def _apply_op(bufs: Sequence[torch.Tensor], op: str, args: Tuple) -> None:
+    """One in-place row write on a corpus's six device arrays. Every write
+    site of ``CorpusIndex`` goes through here, and so does the growth
+    migration's replay onto its new buffers: what is replayed is what was
+    written. Every op is idempotent (rows and their final values)."""
+    emb, lex, tech, call_idx, started, has_emb = bufs
+    if op == "write_slabs":
+        start, emb_t, lex_t, tech_t, call_t, started_t, has_t = args
+        sl = slice(start, start + emb_t.shape[0])
+        emb[sl] = emb_t
+        lex[sl] = lex_t
+        tech[sl] = tech_t
+        call_idx[sl] = call_t
+        started[sl] = started_t
+        has_emb[sl] = has_t
+    elif op == "scatter_emb":
+        idx, rows = args
+        emb.index_copy_(0, idx, rows)
+        has_emb.index_fill_(0, idx, True)
+    elif op == "scatter_tech":
+        idx, rows = args
+        tech.index_copy_(0, idx, rows)
+    elif op == "scatter_lex":
+        idx, rows = args
+        lex.index_copy_(0, idx, rows)
+    elif op == "tombstone":
+        (idx,) = args
+        started.index_fill_(0, idx, INT32_MIN)
+        has_emb.index_fill_(0, idx, False)
+    else:  # pragma: no cover - the write sites are fixed
+        raise ValueError(f"unknown index write {op!r}")
+
+
+class GrowthMigration:
+    """Background capacity growth with an atomic swap.
+
+    The synchronous ``_grow_to`` allocates, fills and copies while it holds
+    the corpus lock, which every dispatch takes. A migration moves that
+    work off the lock: a daemon thread allocates the target buffers, fills
+    their tail and copies the live arrays into their head on a side stream
+    of the device, and ``ensure_capacity`` then swaps the six tensors in
+    under the lock.
+
+    The port's tensors are written in place, so a copy taken off the lock
+    races the writers: a row written after the copy read it would be lost,
+    and one written while the copy reads it may arrive torn. What makes the
+    swap exact is the journal: from the instant the migration starts (under
+    the corpus lock, where the copy's start event is also recorded on the
+    serving stream), every in-place write is recorded at its write site
+    with the device tensors it wrote, and replayed in order onto the new
+    buffers after the bulk copy. Every write is an idempotent row write
+    (``_apply_op``), so whatever the copy caught, the replay leaves each
+    row with its last written value. Stream order: the copy waits for the
+    start event; a journal entry carries an event recorded on the serving
+    stream after its write was enqueued, and the side stream waits for it
+    before replaying (the entry's tensors are marked as used there); the
+    swap makes the serving stream wait for the side stream, replays the
+    tail there, and marks the new buffers as used on the serving stream.
+    Compaction and restore renumber rows and CANCEL the migration."""
+
+    def __init__(self, corpus: "CorpusIndex", new_cap: int):
+        self.corpus = corpus
+        self.new_cap = int(new_cap)
+        self.journal: "deque" = deque()
+        self.ready = threading.Event()
+        self.cancelled = False
+        self.swapped = False
+        # set when the journal has entries to replay, or the thread is to end
+        self._wake = threading.Event()
+        self._apply_lock = threading.Lock()
+        self.bufs: Optional[Tuple[torch.Tensor, ...]] = None
+        # taken under the corpus lock by ``start_migration``: the live
+        # arrays (written in place until the swap or a cancel) and the
+        # point of the serving stream the copy must not overtake
+        self._src = corpus.device_arrays()
+        self._cuda = corpus.device.type == "cuda"
+        self._stream = None
+        self._start_event = None
+        if self._cuda:
+            self._stream = torch.cuda.Stream(corpus.device)
+            self._start_event = self._mark()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"growth-migrate-{corpus.name}",
+        )
+
+    def _mark(self):
+        """An event at the current end of the serving stream."""
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.corpus.device))
+        return ev
+
+    def _on_side_stream(self):
+        if self._cuda:
+            return torch.cuda.stream(self._stream)
+        return contextlib.nullcontext()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def cancel(self) -> None:
+        self.cancelled = True
+        self._wake.set()
+
+    # -- journal (called under corpus.lock at each write site) ----------
+    def journal_op(self, op: str, args: Tuple) -> None:
+        if not self.cancelled:
+            self.journal.append((op, args, self._mark() if self._cuda else None))
+            self._wake.set()
+
+    # -- background thread ------------------------------------------------
+    def _run(self) -> None:
+        c = self.corpus
+        try:
+            with self._on_side_stream():
+                with events.timed("index.migration_alloc", corpus=c.name,
+                                  cap=self.new_cap):
+                    rows = self._src[0].shape[0]
+                    bufs = tuple(
+                        c._alloc_array(attr, self.new_cap, fill_from=rows)
+                        for attr in DEVICE_ARRAYS)
+                    if self._cuda:
+                        self._stream.synchronize()
+                with events.timed("index.migration_copy", corpus=c.name):
+                    if self._cuda:
+                        self._stream.wait_event(self._start_event)
+                    for new, src in zip(bufs, self._src):
+                        new[:rows].copy_(src)
+                    if self._cuda:
+                        self._stream.synchronize()
+            if self.cancelled:
+                return
+            self.bufs = bufs
+            self.ready.set()
+            events.record("index.migration_ready", corpus=c.name,
+                          cap=self.new_cap)
+            # replay as writes arrive; asleep otherwise (a corpus may sit
+            # ready for its swap for a long time)
+            while not self.cancelled and not self.swapped:
+                self._wake.wait()
+                self._wake.clear()
+                while self._apply_some(limit=32):
+                    pass
+        except Exception:  # logged; growth falls back to the synchronous path
+            logger.exception("index.migration_failed corpus=%s", c.name)
+            self.cancelled = True
+
+    def _apply_some(self, limit: int) -> int:
+        n = 0
+        with self._apply_lock, self._on_side_stream():
+            while self.journal and n < limit and not self.swapped:
+                op, args, written = self.journal.popleft()
+                if written is not None:
+                    self._stream.wait_event(written)
+                    for t in args:
+                        if isinstance(t, torch.Tensor):
+                            t.record_stream(self._stream)
+                _apply_op(self.bufs, op, args)
+                n += 1
+        return n
+
+    # -- swap (called under corpus.lock) ---------------------------------
+    def finalize(self) -> Tuple[torch.Tensor, ...]:
+        """Drain the journal tail onto the new buffers, on the serving
+        stream, and hand them over. The caller holds the corpus lock, so no
+        new journal entries can appear."""
+        with self._apply_lock:
+            self.swapped = True
+            self._wake.set()
+            if self._cuda:
+                serving = torch.cuda.current_stream(self.corpus.device)
+                replayed = torch.cuda.Event()
+                replayed.record(self._stream)
+                serving.wait_event(replayed)
+                for t in self.bufs:
+                    t.record_stream(serving)
+            while self.journal:
+                op, args, _written = self.journal.popleft()
+                _apply_op(self.bufs, op, args)
+            return self.bufs
+
+
 class CorpusIndex:
     """One document class (chunks or artifact_chunks) on one device."""
 
@@ -222,10 +419,33 @@ class CorpusIndex:
         # compaction): an IVF
         # build that started before must not install its stale buckets
         self._pos_gen = 0
+        # Cold tier (core/coldtier.py): rows past max_device_rows spill to
+        # host memory, scanned in streamed blocks by the same lane program
+        # and lane-merged before RRF.
+        self.max_device_rows = int(settings.index_max_device_rows or 0)
+        self.cold: Optional[ColdTier] = None
+        if self.max_device_rows and settings.mesh_shape.strip():
+            raise RuntimeError(
+                "INDEX_MAX_DEVICE_ROWS and MESH_SHAPE are mutually "
+                "exclusive: shard the corpus over the mesh OR spill "
+                "to the host cold tier, not both"
+            )
+        # active background growth (GrowthMigration) or None; started by
+        # the manager's growth planner once the corpus nears its capacity
+        self._migration: Optional[GrowthMigration] = None
+        # set by DeviceIndexManager: fires after each insert
+        self._on_insert = None
+        # set by DeviceIndexManager: (corpus, need) -> next capacity, a
+        # doubling when the device has room, a fractional step when only
+        # that fits (core/prewarm.plan_next_capacity), and the SAME
+        # capacity a running migration is heading for
+        self._grow_planner = None
 
-    def _alloc_array(self, attr: str, cap: int) -> torch.Tensor:
+    def _alloc_array(self, attr: str, cap: int,
+                     fill_from: int = 0) -> torch.Tensor:
         """One empty device array of ``cap`` rows: zeros, and ``started``
-        all ``INT32_MIN`` (no row valid)."""
+        all ``INT32_MIN`` (no row valid). Rows below ``fill_from`` are left
+        uninitialised for a caller that overwrites them."""
         shape, dtype = {
             "emb": ((cap, self.dim), self.emb_dtype),
             "lex": ((cap, self.lex_dim), torch.int8),
@@ -234,9 +454,12 @@ class CorpusIndex:
             "started": ((cap,), torch.int32),
             "has_emb": ((cap,), torch.bool),
         }[attr]
-        if attr == "started":
-            return torch.full(shape, INT32_MIN, dtype=dtype, device=self.device)
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+        fill = INT32_MIN if attr == "started" else 0
+        if fill_from:
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            out[fill_from:].fill_(fill)
+            return out
+        return torch.full(shape, fill, dtype=dtype, device=self.device)
 
     def _alloc_arrays(self, cap: int) -> Tuple[torch.Tensor, ...]:
         return tuple(self._alloc_array(attr, cap) for attr in DEVICE_ARRAYS)
@@ -255,13 +478,27 @@ class CorpusIndex:
 
     @property
     def live_count(self) -> int:
-        return self.count - self.tombstones
+        """Live rows across BOTH tiers — idf/avgdl and planner estimates
+        are corpus-wide so hot and cold scoring agree."""
+        cold = self.cold.live_count if self.cold is not None else 0
+        return self.count - self.tombstones + cold
+
+    @property
+    def cold_rows(self) -> int:
+        """Rows the cold tier holds (tombstoned ones included)."""
+        return self.cold.count if self.cold is not None else 0
 
     def _encode_emb(self, rows: np.ndarray) -> torch.Tensor:
         """Host rows -> storage-dtype tensor on the device. int8 storage
         quantizes unit vectors as round(x*127) (the dense lane restores the
         scale); bf16 rows from a JAX checkpoint (ml_dtypes bfloat16) are
-        reinterpreted through int16, never cast; f32 rows round to bf16."""
+        reinterpreted through int16, never cast; f32 rows round to bf16.
+        A tensor (a checkpoint's decoded bf16 rows) passes through when it
+        is in the storage dtype."""
+        if isinstance(rows, torch.Tensor):
+            if rows.dtype == self.emb_dtype:
+                return rows.to(self.device)
+            rows = rows.float().cpu().numpy()
         rows = np.asarray(rows)
         if self.emb_dtype == torch.int8:
             if rows.dtype != np.int8:
@@ -289,7 +526,11 @@ class CorpusIndex:
             self._alloc_device(cap)
             for new, prev in zip(self.device_arrays(), old):
                 new[: prev.shape[0]].copy_(prev)
-            for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+            self._grow_host_mirrors(cap)
+
+    def _grow_host_mirrors(self, cap: int) -> None:
+        with events.timed("index.grow_mirrors", corpus=self.name, cap=int(cap)):
+            for attr in HOST_MIRRORS:
                 mirror = getattr(self, attr)
                 grown = np.zeros(cap, dtype=mirror.dtype)
                 if attr == "h_started":
@@ -301,31 +542,143 @@ class CorpusIndex:
         need = self.count + extra
         if need <= self.capacity:
             return
-        cap = self.capacity
-        while cap < need:
-            cap *= 2
-        self._grow_to(cap)
+        mig = self._migration
+        if mig is not None:
+            if (mig.ready.is_set() and not mig.cancelled
+                    and mig.new_cap >= need):
+                with events.timed("index.growth_swap", corpus=self.name,
+                                  cap=mig.new_cap):
+                    (self.emb, self.lex, self.tech, self.call_idx,
+                     self.started, self.has_emb) = mig.finalize()
+                    self.capacity = mig.new_cap
+                    self._grow_host_mirrors(mig.new_cap)
+                self._migration = None
+                logger.info(
+                    "index.growth_swapped corpus=%s cap=%s (background "
+                    "migration; serving never waited on the copy)",
+                    self.name, mig.new_cap,
+                )
+                return
+            # not ready / target too small: pay the synchronous growth
+            mig.cancel()
+            self._migration = None
+            logger.warning(
+                "index.migration_not_ready corpus=%s need=%s target=%s "
+                "ready=%s — falling back to synchronous growth",
+                self.name, need, mig.new_cap, mig.ready.is_set(),
+            )
+        if self._grow_planner is not None:
+            cap = int(self._grow_planner(self, need))
+        else:
+            cap = self.capacity
+            while cap < need:
+                cap *= 2
+        self._grow_to(max(cap, need))
+
+    def start_migration(self, new_cap: int) -> bool:
+        """Begin background growth toward ``new_cap`` (idempotent). Hot
+        tier only: a corpus with a cold tier caps its device rows."""
+        if self.max_device_rows or not settings.growth_migration_enabled:
+            return False
+        with self.lock:
+            if new_cap <= self.capacity:
+                return False
+            mig = self._migration
+            if mig is not None:
+                if mig.new_cap >= new_cap and not mig.cancelled:
+                    return False  # already migrating there
+                mig.cancel()
+            self._migration = GrowthMigration(self, new_cap)
+            self._migration.start()
+            events.record("index.migration_start", corpus=self.name,
+                          cap=int(new_cap))
+            return True
+
+    def _cancel_migration_locked(self) -> None:
+        """Row positions are being renumbered/reloaded (compaction,
+        restore): a migration's copied rows and journal are stale."""
+        if self._migration is not None:
+            self._migration.cancel()
+            self._migration = None
+
+    def _write(self, op: str, args: Tuple) -> None:
+        """One in-place row write (``_apply_op``) on the live arrays,
+        journaled for a running growth migration. Caller holds the lock."""
+        _apply_op(self.device_arrays(), op, args)
+        mig = self._migration
+        if mig is not None:
+            mig.journal_op(op, args)
 
     # -- ingest -----------------------------------------------------------
     def insert(self, rows: Sequence[DocRow]) -> None:
         if not rows:
             return
+        # a cold tier that these rows would outgrow gets its larger arrays
+        # here, off the lock that every dispatch takes
+        cold_spare = (self.cold.spare_arrays(len(rows))
+                      if self.cold is not None else None)
         with self.lock:
             with events.timed("index.insert", corpus=self.name,
                               rows=len(rows)):
-                self._insert_locked(rows)
+                self._insert_locked(rows, cold_spare)
         self._maybe_schedule_ivf_rebuild()
+        if self._on_insert is not None:
+            self._on_insert()
 
-    def _insert_locked(self, rows: Sequence[DocRow]) -> None:
+    def _cold_tier(self) -> ColdTier:
+        if self.cold is None:
+            self.cold = ColdTier(
+                dim=self.dim, lex_dim=self.lex_dim,
+                tech_slots=self.tech_slots, emb_dtype=self.emb_dtype,
+                device=self.device,
+            )
+            logger.warning(
+                "%s: device-row cap %s reached — new rows spill to the "
+                "host cold tier (core/coldtier.py; scanned per batch in "
+                "%s-row blocks)",
+                self.name, self.max_device_rows,
+                int(settings.cold_block_rows),
+            )
+        return self.cold
+
+    def _present(self, doc_id: int) -> bool:
+        if int(doc_id) in self._id_to_pos:
+            return True
+        return self.cold is not None and self.cold.contains(doc_id)
+
+    def _cold_insert_locked(self, rows: Sequence[DocRow], spare=None) -> None:
+        tier = self._cold_tier()
+        tier.insert(rows, self._encode_emb, spare)
+        for r in rows:
+            self.doc_freq[r.lex_touched] += 1
+            self.dl_sum += r.lex_dl
+
+    def _insert_locked(self, rows: Sequence[DocRow], cold_spare=None) -> None:
         # a row already present (same doc_id) is a no-op: a syncer and a
         # local ingest may race to insert the same committed row
-        rows = [r for r in rows if int(r.doc_id) not in self._id_to_pos]
+        rows = [r for r in rows if not self._present(r.doc_id)]
         if self.deleted_ids:
             # a row tombstoned here can only reappear through a stale sync
             # or rebuild read that raced the store delete: refuse it
             rows = [r for r in rows if int(r.doc_id) not in self.deleted_ids]
         if not rows:
             return
+        if self.max_device_rows:
+            take = min(len(rows), max(0, self.max_device_rows - self.count))
+            # ensure_capacity reserves the POW2-PADDED slab: at a cap that
+            # equals the allocated capacity, a padded tail slab would
+            # otherwise DOUBLE the device arrays past max_device_rows, the
+            # limit that exists because device memory is full. Shrink the
+            # hot intake until its padding fits the existing allocation;
+            # the remainder spills to the cold tier like any over-cap rows.
+            if self.capacity >= self.max_device_rows:
+                while take and self.count + _next_pow2(take) > self.capacity:
+                    take = min(take - 1, _next_pow2(take) // 2)
+            if len(rows) > take:
+                self._cold_insert_locked(rows[take:], cold_spare)
+                rows = rows[:take]
+                if not rows:
+                    return
         n = len(rows)
         # reserve the pow2-padded slab as the JAX index does, so both
         # packages reach the same capacities from the same inserts
@@ -337,15 +690,15 @@ class CorpusIndex:
             if r.embedding is not None:
                 emb[i] = r.embedding
                 has[i] = True
-        sl = slice(start, start + n)
-        self.emb[sl] = self._encode_emb(emb)
-        self.lex[sl] = self._put(np.stack([r.lex_sig for r in rows]), torch.int8)
-        self.tech[sl] = self._put(np.stack([r.tech for r in rows]), torch.int32)
-        self.call_idx[sl] = self._put(
-            np.array([r.call_seq for r in rows]), torch.int32)
-        self.started[sl] = self._put(
-            np.array([r.started_sec for r in rows]), torch.int32)
-        self.has_emb[sl] = self._put(has, torch.bool)
+        self._write("write_slabs", (
+            start,
+            self._encode_emb(emb),
+            self._put(np.stack([r.lex_sig for r in rows]), torch.int8),
+            self._put(np.stack([r.tech for r in rows]), torch.int32),
+            self._put(np.array([r.call_seq for r in rows]), torch.int32),
+            self._put(np.array([r.started_sec for r in rows]), torch.int32),
+            self._put(has, torch.bool),
+        ))
         for i, r in enumerate(rows):
             pos = start + i
             self.h_ids[pos] = r.doc_id
@@ -371,25 +724,30 @@ class CorpusIndex:
         of the rows and one of their ``has_emb`` flags. Ids this corpus
         lacks are skipped. -> rows written."""
         with self.lock:
+            vectors = np.asarray(vectors, dtype=np.float32)
+            cold_n = 0
+            if self.cold is not None:
+                cold_pos = self.cold.positions(doc_ids)
+                cmask = cold_pos >= 0
+                if cmask.any():
+                    cold_n = self.cold.set_embeddings(
+                        cold_pos[cmask], vectors[cmask], self._encode_emb)
             pos = self.position_of(doc_ids)
             keep = pos >= 0
             if not keep.any():
-                return 0
+                return cold_n
             pos = pos[keep]
-            rows = np.asarray(vectors, dtype=np.float32)[keep]
-            idx = self._put(pos, torch.int64)
-            self.emb.index_copy_(0, idx, self._encode_emb(rows))
-            self.has_emb[idx] = True
+            self._write("scatter_emb", (
+                self._put(pos, torch.int64), self._encode_emb(vectors[keep])))
             self.emb_rows += int((~self.h_has_emb[pos]).sum())
             self.h_has_emb[pos] = True
-            return int(pos.shape[0])
+            return int(pos.shape[0]) + cold_n
 
     def contains(self, doc_ids: Sequence[int]) -> np.ndarray:
-        """Presence of each id among the live rows (the syncer and
-        ``reconcile`` ask this)."""
+        """Presence of each id in EITHER tier (the syncer and ``reconcile``
+        ask this instead of ``position_of``, which is hot-tier positional)."""
         with self.lock:
-            lookup = self._id_to_pos
-            return np.array([int(d) in lookup for d in doc_ids], dtype=bool)
+            return np.array([self._present(d) for d in doc_ids], dtype=bool)
 
     def _live_positions(self, doc_ids: Sequence[int], rows: np.ndarray,
                         positions: Optional[np.ndarray] = None):
@@ -402,11 +760,19 @@ class CorpusIndex:
         """Replace the tech-token slots of existing rows (tech-token
         backfill after lexicon changes): one scatter. -> rows written."""
         with self.lock:
-            idx, vals = self._live_positions(
-                doc_ids, np.asarray(tech_rows, dtype=np.int32))
+            tech_rows = np.asarray(tech_rows, dtype=np.int32)
+            cold_n = 0
+            if self.cold is not None:
+                cold_pos = self.cold.positions(doc_ids)
+                cmask = cold_pos >= 0
+                if cmask.any():
+                    cold_n = self.cold.set_tech(
+                        cold_pos[cmask], tech_rows[cmask])
+            idx, vals = self._live_positions(doc_ids, tech_rows)
             if idx.numel():
-                self.tech.index_copy_(0, idx, self._put(vals, torch.int32))
-            return int(idx.numel())
+                self._write("scatter_tech",
+                            (idx, self._put(vals, torch.int32)))
+            return int(idx.numel()) + cold_n
 
     def set_lex(
         self, doc_ids: Sequence[int], lex_rows: np.ndarray,
@@ -420,19 +786,29 @@ class CorpusIndex:
             idx, vals = self._live_positions(
                 doc_ids, np.asarray(lex_rows, dtype=np.int8), positions)
             if idx.numel():
-                self.lex.index_copy_(0, idx, self._put(vals, torch.int8))
+                self._write("scatter_lex", (idx, self._put(vals, torch.int8)))
             return int(idx.numel())
 
     def set_lex_ids(
         self, doc_ids: Sequence[int], lex_rows: np.ndarray
     ) -> np.ndarray:
-        """``set_lex`` by doc id -> the per-id live mask (a re-featurize
-        rebuilds df over every live row from it)."""
+        """``set_lex`` by doc id across BOTH tiers -> the per-id live mask
+        (a re-featurize rebuilds df over every live row, hot or cold, from
+        it)."""
         with self.lock, events.timed("index.set_lex_ids", corpus=self.name,
                                      rows=len(doc_ids)):
             pos = self.position_of(doc_ids)
             self.set_lex(doc_ids, lex_rows, positions=pos)
-            return pos >= 0
+            live = pos >= 0
+            if self.cold is not None:
+                cold_pos = self.cold.positions(doc_ids)
+                cmask = cold_pos >= 0
+                if cmask.any():
+                    self.cold.set_lex(
+                        cold_pos[cmask],
+                        np.asarray(lex_rows, dtype=np.int8)[cmask])
+                live = live | cmask
+            return live
 
     def replace_doc_freq(self, doc_freq: np.ndarray) -> None:
         """Swap the bucket-granularity df table after a full lexical
@@ -460,6 +836,9 @@ class CorpusIndex:
             # blacklist first: an id deleted here must never re-enter, even
             # when this index does not hold it (a store-only writer's row)
             self.deleted_ids.update(int(d) for d in doc_ids)
+            cold_n = 0
+            if self.cold is not None:
+                cold_n = self._cold_delete_locked(doc_ids, lex_sigs, lex_dls)
             pos_all = self.position_of(doc_ids)
             # unknown ids and repeats of one id count once
             _uniq, first = np.unique(pos_all, return_index=True)
@@ -467,11 +846,9 @@ class CorpusIndex:
             keep[first] = True
             keep &= pos_all >= 0
             if not keep.any():
-                return 0
+                return cold_n
             pos = pos_all[keep]
-            idx = self._put(pos, torch.int64)
-            self.started.index_fill_(0, idx, INT32_MIN)
-            self.has_emb.index_fill_(0, idx, False)
+            self._write("tombstone", (self._put(pos, torch.int64),))
             self.emb_rows -= int(self.h_has_emb[pos].sum())
             self.h_started[pos] = INT32_MIN
             self.h_has_emb[pos] = False
@@ -486,17 +863,43 @@ class CorpusIndex:
                     self.dl_sum -= int(lex_dls[i])
             self.dl_sum = max(self.dl_sum, 0)
             self.tombstones += int(pos.shape[0])
-            return int(pos.shape[0])
+            return int(pos.shape[0]) + cold_n
+
+    def _cold_delete_locked(self, doc_ids, lex_sigs, lex_dls) -> int:
+        """Tombstone the ids the cold tier holds (repeats of one id count
+        once) and shed their share of the corpus-wide lexical stats."""
+        cold_pos = self.cold.positions(doc_ids)
+        _uniq, first = np.unique(cold_pos, return_index=True)
+        uniq_idx = [int(i) for i in np.sort(first) if cold_pos[i] >= 0]
+        if not uniq_idx:
+            return 0
+        sigs = ([lex_sigs[i] for i in uniq_idx]
+                if lex_sigs is not None else None)
+        dls = [lex_dls[i] for i in uniq_idx] if lex_dls is not None else None
+        cold_n = self.cold.tombstone(cold_pos[uniq_idx], sigs, dls)
+        for sig in sigs or ():
+            if sig is not None:
+                touched = np.flatnonzero(sig)
+                self.doc_freq[touched] = np.maximum(
+                    self.doc_freq[touched] - 1, 0)
+        for dl in dls or ():
+            self.dl_sum = max(self.dl_sum - int(dl or 0), 0)
+        return cold_n
 
     def maybe_compact(self, threshold_frac: float = 0.25) -> bool:
         """Compact once tombstones reach a quarter of the rows (and at
         least 64): bounded wasted device memory and scan work for a
         one-time gather of the live rows."""
+        compacted = False
         with self.lock:
-            if self.tombstones < max(int(self.count * threshold_frac), 64):
-                return False
-            self.compact()
-            return True
+            if self.cold is not None and self.cold.tombstones >= max(
+                    int(self.cold.count * threshold_frac), 64):
+                self.cold.compact()
+                compacted = True
+            if self.tombstones >= max(int(self.count * threshold_frac), 64):
+                self.compact()
+                compacted = True
+            return compacted
 
     def compact(self) -> None:
         """Gather the live rows to the front of arrays of the new capacity
@@ -522,7 +925,8 @@ class CorpusIndex:
                                    out=dst[:out_rows])
                 setattr(self, attr, dst)
             self.capacity = cap
-            for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+            self._cancel_migration_locked()
+            for attr in HOST_MIRRORS:
                 old = getattr(self, attr)
                 mirror = np.zeros(cap, dtype=old.dtype)
                 if attr == "h_started":
@@ -553,10 +957,18 @@ class CorpusIndex:
         replaces them one by one and may shrink them) and read outside it."""
         with self.lock:
             n = self.count
+            # the cold rows are compacted in place, so their share is
+            # counted under the lock
+            cold_est = (
+                self.cold.estimate(allowed_calls, date_min, date_max,
+                                   require_embedding, unfiltered)
+                if self.cold is not None else 0)
             if n == 0:
-                return 0
+                return cold_est
             if unfiltered:
-                return self.emb_rows if require_embedding else self.live_count
+                hot = (self.emb_rows if require_embedding
+                       else self.count - self.tombstones)
+                return hot + cold_est
             started = self.h_started[:n]
             call = self.h_call[:n]
             has_emb = self.h_has_emb[:n]
@@ -565,33 +977,141 @@ class CorpusIndex:
             mask &= allowed_calls[call]
         if require_embedding:
             mask &= has_emb
-        return int(mask.sum())
+        return int(mask.sum()) + cold_est
 
     # -- state carried across packages (checkpoint payload) ----------------
+    def _hot_lexical_stats(self) -> Tuple[np.ndarray, int]:
+        """(doc_freq, dl_sum) of the hot tier alone. A checkpoint holds the
+        HOT tier only: the cold tier's share of the lexical stats is
+        subtracted, and the startup reconcile re-adds it when the cold rows
+        re-insert from the store."""
+        doc_freq = self.doc_freq.copy()
+        dl_sum = self.dl_sum
+        if self.cold is not None and self.cold.count:
+            logger.warning(
+                "%s: checkpoint snapshots the HOT tier only — %s cold-tier "
+                "rows rebuild from the store at startup (sync.reconcile)",
+                self.name, self.cold.count,
+            )
+            doc_freq = np.maximum(doc_freq - self.cold.df, 0)
+            dl_sum = max(dl_sum - self.cold.dl_sum, 0)
+        return doc_freq, dl_sum
+
+    def _scalar_state(self, c: int) -> Dict[str, np.ndarray]:
+        doc_freq, dl_sum = self._hot_lexical_stats()
+        return {
+            "ids": self.h_ids[:c].copy(),
+            "call": self.h_call[:c].copy(),
+            "started": self.h_started[:c].copy(),
+            "has_emb": self.h_has_emb[:c].copy(),
+            "doc_freq": doc_freq,
+            "dl_sum": np.array([dl_sum], dtype=np.int64),
+        }
+
     def state_arrays(self) -> Dict[str, np.ndarray]:
-        """The JAX package's ``state_arrays`` dict. bf16 embeddings widen to
-        f32 (exact; numpy has no bf16) and round back exactly on load."""
+        """The JAX package's ``state_arrays`` dict (hot tier). bf16
+        embeddings widen to f32 (exact; numpy has no bf16) and round back
+        exactly on load; the checkpoint moves the 2-byte pattern instead
+        (``checkpoint_arrays``)."""
         with self.lock:
             c = self.count
             emb = self.emb[:c]
+            # copies, never views: on the CPU ``_to_host`` shares the live
+            # tensor's memory, which later writes change in place
             return {
-                "emb": _to_host(emb if emb.dtype == torch.int8 else emb.float()),
-                "lex": _to_host(self.lex[:c]),
-                "tech": _to_host(self.tech[:c]),
-                "ids": self.h_ids[:c].copy(),
-                "call": self.h_call[:c].copy(),
-                "started": self.h_started[:c].copy(),
-                "has_emb": self.h_has_emb[:c].copy(),
-                "doc_freq": self.doc_freq.copy(),
-                "dl_sum": np.array([self.dl_sum], dtype=np.int64),
+                "emb": _to_host(emb.clone() if emb.dtype == torch.int8
+                                else emb.float()),
+                "lex": _to_host(self.lex[:c].clone()),
+                "tech": _to_host(self.tech[:c].clone()),
+                **self._scalar_state(c),
             }
+
+    def checkpoint_arrays(self) -> Dict[str, np.ndarray]:
+        """``state_arrays`` for ``core/checkpoint.save_index``: the rows in
+        their storage dtype, bf16 as its uint16 bit pattern (reinterpreted
+        through int16; never widened), int8 as it is. On CUDA the three row
+        arrays are copied into pinned host memory allocated before the lock
+        is taken; under the lock the copies are only enqueued (writers
+        queue behind them on the same stream, so the snapshot is
+        consistent), and the wait for them happens after the lock is
+        released. The ``index.checkpoint_snapshot`` span is the time the
+        lock was held, ``index.checkpoint_pinned_alloc`` the allocation
+        before it."""
+        cuda = self.device.type == "cuda"
+
+        def host_buffers(c: int) -> Dict[str, torch.Tensor]:
+            return {
+                attr: torch.empty((c,) + tuple(getattr(self, attr).shape[1:]),
+                                  dtype=getattr(self, attr).dtype,
+                                  pin_memory=True)
+                for attr in ("emb", "lex", "tech")
+            }
+
+        bufs = None
+        if cuda:
+            # pinning gigabytes takes about a second, during which the
+            # device takes no new work from any thread: timed on its own
+            with events.timed("index.checkpoint_pinned_alloc", corpus=self.name):
+                bufs = host_buffers(self.count)
+        with self.lock:
+            t0 = time.monotonic()
+            c = self.count
+            if cuda:
+                if bufs["lex"].shape[0] != c:
+                    bufs = host_buffers(c)   # rows came or went meanwhile
+                for attr, host in bufs.items():
+                    host.copy_(getattr(self, attr)[:c], non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(torch.cuda.current_stream(self.device))
+            else:
+                bufs = {attr: getattr(self, attr)[:c].clone()
+                        for attr in ("emb", "lex", "tech")}
+            out = self._scalar_state(c)
+            events.record("index.checkpoint_snapshot",
+                          time.monotonic() - t0, corpus=self.name, rows=c)
+        if cuda:
+            copied.synchronize()
+        emb = bufs["emb"]
+        if emb.dtype == torch.bfloat16:
+            emb = emb.view(torch.int16)
+        emb = emb.numpy()
+        out["emb"] = emb.view(np.uint16) if emb.dtype == np.int16 else emb
+        out["lex"] = bufs["lex"].numpy()
+        out["tech"] = bufs["tech"].numpy()
+        return out
 
     def load_state(self, arrays: Dict[str, np.ndarray]) -> None:
         """Install a ``state_arrays`` dict — from this package or from the
         JAX package's ``CorpusIndex.state_arrays()``."""
+        rows = {k: arrays[k] for k in
+                ("emb", "lex", "tech", "ids", "call", "started", "has_emb")}
+        self.load_state_streaming(
+            [rows], arrays["doc_freq"], int(arrays["dl_sum"][0]),
+            int(arrays["ids"].shape[0]))
+
+    def load_state_streaming(
+        self,
+        shards: Iterable[Dict[str, np.ndarray]],
+        doc_freq: np.ndarray,
+        dl_sum: int,
+        total_rows: int,
+    ) -> None:
+        """Streaming restore: one slab write per shard as each arrives, so
+        the read of shard i+1 (``core/checkpoint._shard_stream`` prefetches
+        on a thread) overlaps the upload of shard i and the host never holds
+        the whole corpus. Shards arrive in row order with the keys of
+        ``checkpoint.ROW_KEYS``; ``emb`` is f32, int8, or a bf16 tensor."""
         with self.lock:
-            n = int(arrays["ids"].shape[0])
+            n = int(total_rows)
             self.count = 0
+            # checkpoints are hot-tier-only: cold rows rebuild from the
+            # store via the startup reconcile (they spill again past the cap)
+            self.cold = None
+            # row positions change: derived IVF state is invalid
+            self.ivf = None
+            self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
+            self._cancel_migration_locked()
+            self._pos_gen += 1
             cap = max(self.capacity, _next_pow2(max(n, 8)))
             self.capacity = cap
             self._alloc_device(cap)
@@ -599,32 +1119,51 @@ class CorpusIndex:
             self.h_call = np.zeros(cap, dtype=np.int32)
             self.h_started = np.full(cap, INT32_MIN, dtype=np.int32)
             self.h_has_emb = np.zeros(cap, dtype=bool)
-            if n:
-                self.emb[:n] = self._encode_emb(arrays["emb"])
-                self.lex[:n] = self._put(arrays["lex"].astype(np.int8), torch.int8)
-                self.tech[:n] = self._put(arrays["tech"].astype(np.int32), torch.int32)
-                self.call_idx[:n] = self._put(arrays["call"].astype(np.int32), torch.int32)
-                self.started[:n] = self._put(arrays["started"].astype(np.int32), torch.int32)
-                self.has_emb[:n] = self._put(arrays["has_emb"].astype(bool), torch.bool)
-                self.h_ids[:n] = arrays["ids"]
-                self.h_call[:n] = arrays["call"]
-                self.h_started[:n] = arrays["started"]
-                self.h_has_emb[:n] = arrays["has_emb"]
-            self.doc_freq = arrays["doc_freq"].astype(np.int64)
-            self.dl_sum = int(arrays["dl_sum"][0])
-            started = arrays["started"].astype(np.int32)
-            # tombstoned rows restore as tombstones: their ids do not resolve
+            off = 0
+            for shard in shards:
+                m = int(shard["ids"].shape[0])
+                if m == 0:
+                    continue
+                if off + m > n:
+                    raise ValueError(
+                        f"{self.name}: checkpoint shards carry more than "
+                        f"the {n} rows meta says")
+                call = shard["call"].astype(np.int32)
+                started = shard["started"].astype(np.int32)
+                has = shard["has_emb"].astype(bool)
+                _apply_op(self.device_arrays(), "write_slabs", (
+                    off,
+                    self._encode_emb(shard["emb"]),
+                    self._put(shard["lex"].astype(np.int8, copy=False),
+                              torch.int8),
+                    self._put(shard["tech"].astype(np.int32, copy=False),
+                              torch.int32),
+                    self._put(call, torch.int32),
+                    self._put(started, torch.int32),
+                    self._put(has, torch.bool),
+                ))
+                self.h_ids[off:off + m] = shard["ids"]
+                self.h_call[off:off + m] = call
+                self.h_started[off:off + m] = started
+                self.h_has_emb[off:off + m] = has
+                off += m
+            if off != n:
+                raise ValueError(
+                    f"{self.name}: checkpoint shards carried {off} rows, "
+                    f"meta says {n}")
+            self.doc_freq = np.asarray(doc_freq).astype(np.int64)
+            self.dl_sum = int(dl_sum)
+            started = self.h_started[:n]
+            # tombstoned rows restore as tombstones: their ids must not
+            # resolve (a re-delete would double-count, a backfill would
+            # write into a dead row)
             self._id_to_pos = {
-                int(d): p for p, d in enumerate(arrays["ids"])
+                int(d): p for p, d in enumerate(self.h_ids[:n])
                 if started[p] != INT32_MIN
             }
-            self.emb_rows = int(arrays["has_emb"].astype(bool).sum())
+            self.emb_rows = int(self.h_has_emb[:n].sum())
             self.tombstones = int((started == INT32_MIN).sum())
             self.count = n
-            # row positions changed: derived IVF state is invalid
-            self.ivf = None
-            self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
-            self._pos_gen += 1
 
     # -- IVF dense index ----------------------------------------------------
     def _ivf_append_overflow(self, positions: np.ndarray) -> None:
@@ -911,6 +1450,11 @@ class PackedDispatch:
     artifact_snap: Tuple[Optional[np.ndarray], int] = (None, 0)
     batch: int = 0
     ready: Optional[Tuple[Dict, Dict]] = None
+    # in-flight cold-tier block scans per corpus (core/coldtier.py), merged
+    # at collect, and the lane widths the caller asked for
+    cold_chunks: list = dataclasses.field(default_factory=list)
+    cold_artifacts: list = dataclasses.field(default_factory=list)
+    cold_ks: Optional[Tuple[Tuple[int, int, int], Tuple[int, int, int]]] = None
 
 
 class DeviceIndexManager:
@@ -931,6 +1475,14 @@ class DeviceIndexManager:
         self.chunks = CorpusIndex("chunks", **kwargs)
         self.artifacts = CorpusIndex("artifact_chunks", **kwargs)
         self.call_capacity = 256
+        from .prewarm import GrowthPrewarmer
+
+        # plans the next capacity of a corpus that nears its own and starts
+        # the background migration toward it (core/prewarm.py)
+        self.prewarmer = GrowthPrewarmer(self)
+        for corpus in (self.chunks, self.artifacts):
+            corpus._on_insert = self.prewarmer.maybe_prewarm
+            corpus._grow_planner = self.prewarmer.growth_cap
 
     def ensure_call_capacity(self, n_calls: int) -> None:
         while self.call_capacity < n_calls:
@@ -1051,6 +1603,10 @@ class DeviceIndexManager:
                 artifact_ks=artifact_ks, chunk_mode=chunk_mode,
                 artifact_mode=artifact_mode, recall_target=recall_target,
             )
+            ready = self._merge_cold_ready(
+                ready, q_emb, q_lex_feats, q_tech, allowed_calls, date_min,
+                date_max, chunk_ks, artifact_ks, chunk_mode, artifact_mode,
+                batch)
             return PackedDispatch(
                 ready=ready,
                 served_chunk_mode="ann" if chunk_mode == "ivf" else chunk_mode)
@@ -1071,10 +1627,13 @@ class DeviceIndexManager:
         with self.chunks.lock, self.artifacts.lock:
             chunk_mode, ivf_dense = self._resolve_chunk_dense(
                 chunk_mode, dense_enabled, *ivf_inputs, chunk_ks[0])
-            # device RRF needs every lane in the packed program: with the
-            # IVF dense lane in its own dispatch ("none") the caller merges
-            # the lanes on the host
-            fuse_rrf = bool(fuse_rrf and chunk_mode != "none")
+            # device RRF needs every lane in the packed program and every
+            # candidate in the hot tier: with the IVF dense lane in its own
+            # dispatch ("none"), or a cold tier holding rows (its lanes
+            # merge on the host before RRF), the caller merges on the host
+            fuse_rrf = bool(
+                fuse_rrf and chunk_mode != "none"
+                and not self.chunks.cold_rows and not self.artifacts.cold_rows)
             sig = QuerySignature(
                 batch=batch,
                 emb_dim=self.chunks.dim if dense_enabled else 1,
@@ -1096,6 +1655,22 @@ class DeviceIndexManager:
             # snapshot the host mirrors while the positions are current
             chunk_snap = (self.chunks.h_ids, self.chunks.count)
             artifact_snap = (self.artifacts.h_ids, self.artifacts.count)
+            # cold tier: enqueue the block scans behind the hot program,
+            # still under the locks (a cold-tier writer waits for the block
+            # copies before it touches the rows)
+            cold_chunks, cold_artifacts = [], []
+            if self.chunks.cold_rows or self.artifacts.cold_rows:
+                # the queries as the hot program unpacked them (f16 on the
+                # wire), so both tiers score with the same values
+                q = _unpack(
+                    d_packed, batch=batch, dim=sig.emb_dim, q_feats=F,
+                    tech_q=sig.tech_q, n_calls=sig.n_calls)
+                cold_chunks, cold_artifacts = self._dispatch_cold_locked(
+                    q["q_emb"] if dense_enabled else None,
+                    _densify(q["cb"], q["cv"], self.chunks.lex_dim),
+                    _densify(q["ab"], q["av"], self.artifacts.lex_dim),
+                    q["tech"], q["allowed"], q["dmin"], q["dmax"],
+                    chunk_ks, artifact_ks, chunk_mode, artifact_mode)
         done = None
         if flat.is_cuda:
             flat_host = _to_pinned(flat)
@@ -1105,12 +1680,81 @@ class DeviceIndexManager:
             done.record(torch.cuda.current_stream(flat.device))
         else:
             flat_host = flat
+        self.prewarmer.note_batch(batch)
         return PackedDispatch(
             flat_host=flat_host, done=done, sig=sig,
             served_chunk_mode="ivf" if chunk_mode == "none" else chunk_mode,
             extra_dense=ivf_dense, chunk_snap=chunk_snap,
             artifact_snap=artifact_snap, batch=batch,
+            cold_chunks=cold_chunks, cold_artifacts=cold_artifacts,
+            cold_ks=(chunk_ks, artifact_ks),
         )
+
+    def _dispatch_cold_locked(
+        self, q_emb, chunk_q_lex, artifact_q_lex, q_tech, allowed_calls,
+        date_min, date_max, chunk_ks, artifact_ks, chunk_mode, artifact_mode,
+    ) -> Tuple[list, list]:
+        """Enqueue cold-tier block scans for corpora with spilled rows
+        (caller holds both corpus locks). The queries are tensors on the
+        index's device, the very ones the hot program scored with, and the
+        lexical vectors carry the corpus-wide df and live count (hot +
+        cold): a cold row scores exactly as it would in the hot tier."""
+        out: List[list] = []
+        for corpus, q_lex, ks, mode in (
+            (self.chunks, chunk_q_lex, chunk_ks, chunk_mode),
+            (self.artifacts, artifact_q_lex, artifact_ks, artifact_mode),
+        ):
+            if not corpus.cold_rows:
+                out.append([])
+                continue
+            out.append(corpus.cold.dispatch(
+                q_emb, q_lex, q_tech, allowed_calls, date_min, date_max,
+                ks=ks, dense_mode=mode,
+                block_rows=int(settings.cold_block_rows),
+            ))
+        return out[0], out[1]
+
+    def _merge_cold(self, rects, cold_chunks, cold_artifacts, chunk_ks,
+                    artifact_ks, batch):
+        """Lane-merge dispatched cold blocks into the hot tier's rectangular
+        lanes (the dispatch's event has been waited for)."""
+        merged = []
+        for corpus, rect, blocks, ks in (
+            (self.chunks, rects[0], cold_chunks, chunk_ks),
+            (self.artifacts, rects[1], cold_artifacts, artifact_ks),
+        ):
+            if blocks:
+                rect = merge_rect_lanes(
+                    rect, collect_cold(corpus, blocks, batch),
+                    {"dense": ks[0], "lex": ks[1], "tech": ks[2]})
+            merged.append(rect)
+        return tuple(merged)
+
+    def _merge_cold_ready(
+        self, ready, q_emb, q_lex_feats, q_tech, allowed_calls, date_min,
+        date_max, chunk_ks, artifact_ks, chunk_mode, artifact_mode, batch,
+    ):
+        """Synchronous cold merge for the blocking cold-start path, which
+        scores the hot rows with f32 queries from the host: so here."""
+        if not self.chunks.cold_rows and not self.artifacts.cold_rows:
+            return ready
+        put = self.chunks._put
+        with self.chunks.lock, self.artifacts.lock:
+            q_lex = [
+                put(np.stack([_dense_query_vector(f, corpus)
+                              for f in q_lex_feats]), torch.float32)
+                for corpus in (self.chunks, self.artifacts)]
+            cold_chunks, cold_artifacts = self._dispatch_cold_locked(
+                put(q_emb, torch.float32) if q_emb is not None else None,
+                *q_lex, put(q_tech, torch.int32),
+                put(allowed_calls, torch.bool),
+                put(np.asarray(date_min, np.int32), torch.int32),
+                put(np.asarray(date_max, np.int32), torch.int32),
+                chunk_ks, artifact_ks, chunk_mode, artifact_mode)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._merge_cold(ready, cold_chunks, cold_artifacts,
+                                chunk_ks, artifact_ks, batch)
 
     def _resolve_chunk_dense(
         self, chunk_mode, dense_enabled, q_emb, allowed_calls, date_min,
@@ -1154,11 +1798,16 @@ class DeviceIndexManager:
         if disp.extra_dense is not None:
             chunks_np = dict(chunks_np)
             chunks_np["dense"] = tuple(_to_host(t) for t in disp.extra_dense)
-        return (
+        rects = (
             self.chunks.postprocess_lanes(chunks_np, disp.batch, *disp.chunk_snap),
             self.artifacts.postprocess_lanes(
                 artifacts_np, disp.batch, *disp.artifact_snap),
         )
+        if disp.cold_chunks or disp.cold_artifacts:
+            rects = self._merge_cold(rects, disp.cold_chunks,
+                                     disp.cold_artifacts, *disp.cold_ks,
+                                     disp.batch)
+        return rects
 
 
 def _dense_query_vector(feats, corpus: CorpusIndex) -> np.ndarray:
@@ -1193,3 +1842,8 @@ def reset_index() -> None:
     global _index
     with _index_lock:
         _index = None
+    # the active lexical vocab belongs to the (store, index) pair; a fresh
+    # index must not inherit a previous corpus's head layout
+    from ..ingest import featurize
+
+    featurize.set_active_vocab(None, 0)

@@ -10,7 +10,8 @@ at run time), the dispatch is a ``torch.profiler.record_function`` region,
 ``notes.retrieval.ann_expected_recall`` comes from the port's own table
 of K1's recall read on the card (``engine/planner.MEASURED_ANN_RECALL``;
 flat in ``ef_search``, which does not move the port's scan), and the
-reranker (``settings.rerank_enabled``) is not ported yet.
+reranker (``engine/rerank.py``) serves the ``lexical`` provider only: the
+neural providers raise there.
 
 Response-shape and ranking-semantics parity with the reference
 (reference: app/retrieve.py:392-688):
@@ -72,11 +73,6 @@ TECH_TOPK = 50
 MAX_ARTIFACTS = 2
 MAX_QUOTES_PER_CALL = 2
 SNIPPET_CHARS = 800
-
-RERANK_NOT_PORTED = (
-    "RERANK_ENABLED: the reranker (engine/rerank.py, models/*) is not ported "
-    "yet (ROADMAP Queue 1 item 6)"
-)
 
 # one lane's ranked output: (doc_ids int64 array, scores f32 array or None)
 LaneRows = Tuple[np.ndarray, Optional[np.ndarray]]
@@ -637,8 +633,31 @@ def _assemble(
     )
 
     reranked_from: Optional[int] = None
-    if settings.rerank_enabled:
-        raise RuntimeError(RERANK_NOT_PORTED)
+    if settings.rerank_enabled and chunk_ids.size:
+        from .rerank import rerank
+
+        index = get_index()
+        t0 = time.perf_counter()
+        reranked_from = min(int(settings.rerank_topk), int(chunk_ids.size))
+        # bridge arrays <-> the triple interface (the rerank providers read
+        # candidate rows from SQLite; conversion cost is noise next to that)
+        triples = [
+            (int(i), lane_mask_names(int(m), chunk_names), float(s))
+            for i, m, s in zip(chunk_ids, chunk_masks, chunk_scores)
+        ]
+        triples = rerank(
+            plan.query, triples, "chunks",
+            index.chunks.doc_freq, index.chunks.live_count,
+            topk=reranked_from,
+            provider=settings.rerank_provider,
+        )
+        bit_of = {name: 1 << i for i, name in enumerate(chunk_names)}
+        chunk_ids = np.array([t[0] for t in triples], dtype=np.int64)
+        chunk_scores = np.array([t[2] for t in triples], dtype=np.float64)
+        chunk_masks = np.array(
+            [sum(bit_of[n] for n in t[1]) for t in triples], dtype=np.uint8
+        )
+        plan.timings["rerank_ms"] = (time.perf_counter() - t0) * 1e3
 
     if payload.return_style == "ids_only":
         # sort by (-score, kind, id); artifacts sort before chunks on ties

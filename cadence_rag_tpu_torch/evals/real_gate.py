@@ -8,9 +8,10 @@ temp Postgres schema), ingest the fixture corpus, embed it (deterministic
 in-process provider, so the dense lane is exercised — the reference gate
 runs lexical-only), resolve gold ids, run retrieve_evidence(ids_only) per
 gold query, compute recall@k / MRR / nDCG@k, and fail below thresholds
-(defaults mrr>=0.60, recall@20>=0.80, ndcg@10>=0.70). The JAX gate's
-neural-embedder, reranker and vocab-head variants wait for their modules
-(ROADMAP Queue 1 items 4 and 6).
+(defaults mrr>=0.60, recall@20>=0.80, ndcg@10>=0.70). ``build_vocab``
+gates the learned vocab head end to end and ``rerank_provider="lexical"``
+the rerank lane; the JAX gate's neural embedder and neural rerankers wait
+for ``models/*`` (ROADMAP Queue 1 item 6) and raise.
 
 Usage: python -m cadence_rag_tpu_torch.evals.real_gate [--device cuda|cpu]
 """
@@ -43,6 +44,8 @@ def run_gate(
     min_ndcg10: float = DEFAULT_THRESHOLDS["min_ndcg10"],
     store_dir: Optional[str] = None,
     provider: str = "stub",
+    build_vocab: bool = False,
+    rerank_provider: str = "",
 ) -> Dict:
     from ..core.index import get_index, reset_index
     from ..store.db import reset_store
@@ -52,12 +55,23 @@ def run_gate(
     saved = {
         key: getattr(settings, key)
         for key in ("store_path", "embeddings_provider", "embeddings_base_url",
-                    "index_initial_capacity")
+                    "index_initial_capacity", "rerank_enabled",
+                    "rerank_provider")
     }
     settings.store_path = str(workdir / "gate.db")
     settings.embeddings_provider = provider
     settings.embeddings_base_url = ""
     settings.index_initial_capacity = 256
+    if rerank_provider:
+        # gate the FULL path with the rerank lane on: the fixture gate is
+        # the lexically-saturated register a reranker must not regress
+        from ..engine.rerank import NEURAL_NOT_PORTED, NEURAL_PROVIDERS
+
+        if rerank_provider in NEURAL_PROVIDERS:
+            raise NotImplementedError(
+                NEURAL_NOT_PORTED.format(provider=rerank_provider))
+        settings.rerank_enabled = True
+        settings.rerank_provider = rerank_provider
     reset_store()
     reset_index()
     try:
@@ -70,6 +84,13 @@ def run_gate(
         get_index(device)
         ingest_fixtures()
         run_embedding_backfill(batch_size=16, source="real_gate")
+        if build_vocab:
+            # gate the learned vocab head end-to-end: build + re-featurize
+            # (scripts/build_lex_vocab flow), then run the same queries
+            from ..core.vocab import build_and_apply
+            from ..store.db import get_store
+
+            build_and_apply(get_store(), get_index(), head=256)
         gold = resolve_gold()
         for query_id, ids in gold.items():
             if not ids:

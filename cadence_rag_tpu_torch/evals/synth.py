@@ -13,6 +13,11 @@ queries on top: texts featurized by ``ingest.featurize`` and embedded by the
 deterministic stub embedder, the host work ingest and the engine do before
 the device path. ``bulk_store_rows`` writes matching metadata rows into the
 SQLite store, so evidence-pack serving reads real rows.
+``append_synthetic_rows`` fills the room a corpus's capacity has left;
+``install_synthetic_cold`` fills a capped corpus's host cold tier, and
+``install_capped_copy`` rebuilds one corpus's rows, in their order, in a
+corpus capped at ``INDEX_MAX_DEVICE_ROWS``: the first rows hot, the rest in
+the cold tier, so a capped index can be held to the uncapped one.
 """
 
 from __future__ import annotations
@@ -95,6 +100,163 @@ def install_synthetic_corpus(
         corpus.count = n
 
 
+def append_synthetic_rows(
+    corpus: CorpusIndex, n: int, n_calls: int, seed: int = 3,
+) -> np.ndarray:
+    """Append n synthetic rows (doc ids continuing after the corpus's
+    highest) INTO THE ROOM THE CAPACITY HAS, generated on the device in
+    slabs and written through the index's own slab write, so a running
+    growth migration journals them. No growth, no trigger: a scale run fills
+    a corpus to just under its capacity with this and then crosses it
+    through ``insert``. -> the new doc ids."""
+    dev = corpus.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    with corpus.lock:
+        start = corpus.count
+        if start + n > corpus.capacity:
+            raise ValueError(
+                f"{corpus.name}: {n} more rows do not fit capacity "
+                f"{corpus.capacity} at {start} rows")
+        first_id = int(corpus.h_ids[:start].max(initial=0)) + 1
+        for b0 in range(0, n, GEN_ROWS):
+            b = min(GEN_ROWS, n - b0)
+            x = torch.randn((b, corpus.dim), generator=gen, device=dev)
+            x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+            if corpus.emb_dtype == torch.int8:
+                x = torch.clamp(torch.round(x * 127.0), -127, 127)
+            call = torch.randint(0, n_calls, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            started = torch.randint(1_600_000_000, 1_750_000_000, (b,),
+                                    generator=gen, device=dev, dtype=torch.int32)
+            corpus._write("write_slabs", (
+                start + b0,
+                x.to(corpus.emb_dtype),
+                torch.randint(-4, 5, (b, corpus.lex_dim), generator=gen,
+                              device=dev, dtype=torch.int8),
+                torch.randint(1, 5000, (b, corpus.tech_slots), generator=gen,
+                              device=dev, dtype=torch.int32),
+                call, started,
+                torch.ones(b, dtype=torch.bool, device=dev),
+            ))
+            sl = slice(start + b0, start + b0 + b)
+            corpus.h_call[sl] = call.cpu().numpy()
+            corpus.h_started[sl] = started.cpu().numpy()
+        ids = np.arange(first_id, first_id + n, dtype=np.int64)
+        corpus.h_ids[start:start + n] = ids
+        corpus.h_has_emb[start:start + n] = True
+        corpus._id_to_pos.update(
+            (int(d), start + i) for i, d in enumerate(ids))
+        corpus.dl_sum += 12 * n
+        corpus.emb_rows += n
+        corpus.count += n
+        if corpus.ivf is not None:
+            corpus._ivf_append_overflow(
+                np.arange(start, start + n, dtype=np.int32))
+    return ids
+
+
+def _cold_room(corpus: CorpusIndex, n: int):
+    """The corpus's cold tier with room for ``n`` more rows."""
+    tier = corpus._cold_tier()
+    if tier.count + n > tier.capacity:
+        tier._alloc(_next_pow2(tier.count + n, lo=1024))
+    return tier
+
+
+def install_synthetic_cold(
+    corpus: CorpusIndex, n: int, n_calls: int, seed: int = 2,
+) -> None:
+    """Fill ``corpus``'s HOST cold tier with n synthetic rows (doc ids
+    continue after both tiers'), generated on the corpus's device in slabs
+    and copied into the tier's arrays — the DocRow insert path takes
+    minutes at millions of rows. Updates the tier's counters and its
+    id map; the synthetic lexical stats of ``install_synthetic_corpus``
+    stand for both tiers."""
+    dev = corpus.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    with corpus.lock:
+        tier = _cold_room(corpus, n)
+        start = tier.count
+        first_id = int(corpus.h_ids[: corpus.count].max(initial=0)) + 1
+        if tier.count:
+            first_id = max(first_id, int(tier.ids[: tier.count].max()) + 1)
+        for b0 in range(0, n, GEN_ROWS):
+            b = min(GEN_ROWS, n - b0)
+            sl = slice(start + b0, start + b0 + b)
+            x = torch.randn((b, corpus.dim), generator=gen, device=dev)
+            x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+            if corpus.emb_dtype == torch.int8:
+                x = torch.clamp(torch.round(x * 127.0), -127, 127)
+            tier.emb[sl] = x.to(corpus.emb_dtype).cpu()
+            tier.lex[sl] = torch.randint(
+                -4, 5, (b, corpus.lex_dim), generator=gen, device=dev,
+                dtype=torch.int8).cpu()
+            tier.tech[sl] = torch.randint(
+                1, 5000, (b, corpus.tech_slots), generator=gen, device=dev,
+                dtype=torch.int32).cpu()
+            tier.call_idx[sl] = torch.randint(
+                0, n_calls, (b,), generator=gen, device=dev,
+                dtype=torch.int32).cpu()
+            tier.started[sl] = torch.randint(
+                1_600_000_000, 1_750_000_000, (b,), generator=gen, device=dev,
+                dtype=torch.int32).cpu()
+            tier.has_emb[sl] = True
+        ids = np.arange(first_id, first_id + n, dtype=np.int64)
+        tier.ids[start:start + n] = ids
+        tier._id_to_pos.update((int(d), start + i) for i, d in enumerate(ids))
+        tier.emb_rows += n
+        tier.count += n
+
+
+def install_capped_copy(src: CorpusIndex, dst: CorpusIndex) -> None:
+    """Give ``dst`` (empty, capped at ``dst.max_device_rows``, same widths
+    and device as ``src``) the rows of ``src`` in their order: the first
+    ``max_device_rows`` in its device arrays, the rest in its host cold
+    tier, with the ids, host mirrors and corpus-wide lexical stats of
+    ``src``. Tombstoned rows of ``src`` come along as tombstones."""
+    cap_rows = int(dst.max_device_rows)
+    if not cap_rows or dst.count or dst.cold_rows:
+        raise ValueError("install_capped_copy: dst must be empty and capped")
+    with src.lock, dst.lock:
+        n = src.count
+        hot = min(n, cap_rows)
+        cap = max(dst.capacity, _next_pow2(max(hot, 8)))
+        dst.capacity = cap
+        dst._alloc_device(cap)
+        for new, old in zip(dst.device_arrays(), src.device_arrays()):
+            new[:hot].copy_(old[:hot])
+        for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+            old = getattr(src, attr)
+            mirror = np.zeros(cap, dtype=old.dtype)
+            if attr == "h_started":
+                mirror[:] = INT32_MIN
+            mirror[:hot] = old[:hot]
+            setattr(dst, attr, mirror)
+        live = dst.h_started[:hot] != INT32_MIN
+        dst._id_to_pos = {
+            int(d): p for p, d in enumerate(dst.h_ids[:hot]) if live[p]}
+        dst.emb_rows = int(dst.h_has_emb[:hot].sum())
+        dst.tombstones = int((~live).sum())
+        dst.count = hot
+        dst.doc_freq = src.doc_freq.copy()
+        dst.dl_sum = src.dl_sum
+        m = n - hot
+        if m:
+            tier = _cold_room(dst, m)
+            for cold, old in zip(tier.row_arrays(), src.device_arrays()):
+                cold[:m].copy_(old[hot:n])
+            tier.ids[:m] = src.h_ids[hot:n]
+            started = src.h_started[hot:n]
+            tier._id_to_pos = {
+                int(d): p for p, d in enumerate(tier.ids[:m])
+                if started[p] != INT32_MIN}
+            tier.emb_rows = int(src.h_has_emb[hot:n].sum())
+            tier.tombstones = int((started == INT32_MIN).sum())
+            tier.count = m
+
+
 def insert_text_rows(
     corpus: CorpusIndex,
     texts: Sequence[str],
@@ -170,9 +332,15 @@ def bulk_store_rows(
     n_artifacts: int,
     n_calls: int,
     call_ids: Optional[List[str]] = None,
+    chunk_text=None,
+    artifact_text=None,
 ) -> List[str]:
     """Matching metadata rows (chunk_id/artifact_chunk_id = 1..n) via
-    executemany — seconds at 1M rows instead of minutes row-at-a-time."""
+    executemany — seconds at 1M rows instead of minutes row-at-a-time.
+    ``chunk_text(i)`` / ``artifact_text(i)`` give row i's text (default: the
+    synthetic sentences)."""
+    chunk_text = chunk_text or synth_text
+    artifact_text = artifact_text or (lambda i: f"artifact {i} about the rollout")
     from ..utils.timeutil import now_utc, to_iso
 
     now = to_iso(now_utc())
@@ -192,7 +360,7 @@ def bulk_store_rows(
             " VALUES (?,?,?,?,?,?,?,?,?,?)",
             (
                 (i + 1, call_ids[i % n_calls], now, "A", 0, 1000, 12,
-                 synth_text(i), "[]", 10)
+                 chunk_text(i), "[]", 10)
                 for i in range(n_chunks)
             ),
         )
@@ -202,7 +370,7 @@ def bulk_store_rows(
             "VALUES (?,?,?,?,?,?,?)",
             (
                 (i + 1, call_ids[i % n_calls], now, "summary",
-                 f"artifact {i} about the rollout", 6, "[]")
+                 artifact_text(i), 6, "[]")
                 for i in range(n_artifacts)
             ),
         )
@@ -212,7 +380,7 @@ def bulk_store_rows(
             "tech_tokens, lex_dl) VALUES (?,?,?,?,?,?,?,?,?,?)",
             (
                 (i + 1, i + 1, call_ids[i % n_calls], now, "summary", 0,
-                 f"artifact {i} about the rollout", 6, "[]", 6)
+                 artifact_text(i), 6, "[]", 6)
                 for i in range(n_artifacts)
             ),
         )

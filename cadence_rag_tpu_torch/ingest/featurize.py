@@ -3,11 +3,11 @@
 Counterpart of ``cadence_rag_tpu/ingest/featurize.py``. The batch entry
 points dispatch to the native C++ featurizer (``native/lexhash``) when it is
 built and fall back to the pure-Python featurizer of ``ops/hashing.py``,
-the plain reference; both give the same bits (tested). Only the plain
-single-hash lexical layout is served: the learned vocab head
-(``core/vocab.py``) is not ported, so ``set_active_vocab`` refuses a vocab
-and the stand-ins below refuse a store that has one. Widths come from the
-port's ``settings``.
+the plain reference; both give the same bits (tested). With a vocab head
+active (``set_active_vocab``; learned by ``core/vocab.py``) the native
+library supplies the raw features only and numpy places them
+(``ops/hashing.apply_vocab``), so both featurizers agree with a vocab as
+without. Widths come from the port's ``settings``.
 """
 
 from __future__ import annotations
@@ -20,43 +20,21 @@ from ..config import settings
 from ..ops import hashing
 from ..utils.locks import RWLock
 
-# Vocab-layout gate: ingest paths hold the READ side across featurize ->
-# store write -> device insert, as in the JAX package, where an online
-# vocab rebuild holds the WRITE side. The port has no rebuild yet, so only
-# readers take it.
+# Vocab-layout gate: ingest/delete paths hold the READ side across
+# featurize -> store write -> device insert; an online vocab rebuild
+# (core/vocab.build_and_apply) holds the WRITE side for the activate +
+# re-featurize window, so no document can land half in the old layout
+# and half unscanned by the re-featurize pass.
 vocab_gate = RWLock()
 
-VOCAB_NOT_PORTED = (
-    "the learned lexical vocab head (core/vocab.py) is not ported yet "
-    "(ROADMAP Queue 1 item 4): the port serves the plain single-hash layout"
-)
-
-
-def refuse_applied_vocab(store) -> None:
-    """Raise when ``store`` has an applied lexical vocab: its signatures
-    follow a layout this package cannot featurize."""
-    with store.read() as conn:
-        row = conn.execute(
-            "SELECT MAX(version) AS v FROM lex_vocab WHERE applied=1"
-        ).fetchone()
-    if row["v"] is not None:
-        raise RuntimeError(
-            f"the store's lexical vocab v{row['v']}: {VOCAB_NOT_PORTED}")
-
-
-def adopt_store_layout(store, index) -> None:
-    """Stand-in for ``core/vocab.adopt_store_layout`` until the vocab head
-    is ported: a store without an applied vocab needs nothing adopted; one
-    with an applied vocab (another process built it) raises."""
-    refuse_applied_vocab(store)
-
-
-def auto_rebuild_if_needed(store, index) -> None:
-    """Stand-in for ``core/vocab.auto_rebuild_if_needed``: nothing to do
-    unless ``LEX_VOCAB_AUTO_REBUILD`` is on, which startup refuses."""
-    if settings.lex_vocab_auto_rebuild:
-        raise NotImplementedError(
-            f"LEX_VOCAB_AUTO_REBUILD: {VOCAB_NOT_PORTED}")
+# Active lexical vocab head: the T most document-frequent features get
+# dedicated collision-free buckets [0, T). Learned per store by
+# ``python -m cadence_rag_tpu_torch.scripts.build_lex_vocab`` and activated
+# at startup/restore; None = plain single-hash layout (the default). Every
+# featurizer in the process must agree with the layout the device
+# signatures were built with, hence one module-level registry.
+_ACTIVE_VOCAB: Optional[np.ndarray] = None
+_ACTIVE_VOCAB_VERSION: int = 0
 
 
 def _native():
@@ -72,14 +50,25 @@ def native_available() -> bool:
 
 
 def set_active_vocab(vocab: Optional[np.ndarray], version: int) -> None:
-    """Only ``None`` (the plain layout) is accepted."""
-    if vocab is not None and np.asarray(vocab).size:
-        raise NotImplementedError(VOCAB_NOT_PORTED)
+    """Install a vocab head (a sorted uint64 hash array, as the JAX package
+    keeps it; unsorted input is sorted and deduplicated) or clear it."""
+    global _ACTIVE_VOCAB, _ACTIVE_VOCAB_VERSION
+    if vocab is not None:
+        vocab = np.asarray(vocab, dtype=np.uint64)
+        if vocab.size > 1 and not np.all(vocab[1:] > vocab[:-1]):
+            vocab = np.unique(vocab)
+        if vocab.size >= int(settings.lexical_dim):
+            raise ValueError(
+                f"lex vocab head {vocab.size} must be smaller than "
+                f"lexical_dim {settings.lexical_dim}"
+            )
+    _ACTIVE_VOCAB = vocab if (vocab is not None and vocab.size) else None
+    _ACTIVE_VOCAB_VERSION = int(version) if _ACTIVE_VOCAB is not None else 0
 
 
 def active_vocab() -> Tuple[Optional[np.ndarray], int]:
-    """(vocab head, version): always the plain layout, (None, 0)."""
-    return None, 0
+    """(vocab head or None, version; 0 = the plain layout)."""
+    return _ACTIVE_VOCAB, _ACTIVE_VOCAB_VERSION
 
 
 def lexical_signature(
@@ -91,9 +80,9 @@ def lexical_signature(
 
 def lexical_signatures_batch(texts: Sequence[str], avgdl: float):
     """Per text (int8 signature (lexical_dim,), touched buckets, doc
-    length)."""
+    length), under the active vocab."""
     dim = int(settings.lexical_dim)
-    return [hashing.doc_signature_from_raw(h, t, dim, avgdl)
+    return [hashing.doc_signature_from_raw(h, t, dim, avgdl, _ACTIVE_VOCAB)
             for h, t in raw_lexical_features_batch(texts)]
 
 
@@ -106,16 +95,32 @@ def raw_lexical_features_batch(texts: Sequence[str]):
     return [hashing.raw_feature_arrays(t) for t in texts]
 
 
+def query_lexical_vector(
+    text: str, doc_freq: np.ndarray, n_docs: int
+) -> np.ndarray:
+    """One query's idf-weighted signed vector (f32 (lexical_dim,))."""
+    buckets, signs, tfs = query_lexical_features(text)
+    return hashing.query_vector_from_features(
+        buckets, signs, tfs, int(settings.lexical_dim), doc_freq, n_docs)
+
+
 def query_lexical_features(text: str):
     """(buckets, signs, clipped tfs) of one query; the index turns them
     into a query vector with each corpus's idf."""
-    return hashing.query_feature_arrays(text, int(settings.lexical_dim))
+    return query_lexical_features_batch([text])[0]
 
 
 def query_lexical_features_batch(texts: Sequence[str]):
     """``query_lexical_features`` per text: one native call for the batch
-    when the native featurizer is built."""
+    when the native featurizer is built. The native library computes the
+    plain layout's buckets itself; under a vocab it gives raw features and
+    numpy places them."""
     dim = int(settings.lexical_dim)
+    if _ACTIVE_VOCAB is not None:
+        return [
+            hashing.query_feature_arrays_from_raw(h, t, dim, _ACTIVE_VOCAB)
+            for h, t in raw_lexical_features_batch(texts)
+        ]
     native = _native()
     if native is not None:
         return native.query_features_batch(list(texts), dim)

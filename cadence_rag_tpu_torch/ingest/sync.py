@@ -1,9 +1,7 @@
 """Live store -> device-index synchronization.
 
-Counterpart of ``cadence_rag_tpu/ingest/sync.py`` over the port's index.
-What differs: the cold-tier branches are left out (the cold tier is not
-ported), and the two calls into ``core/vocab.py`` go to the stand-ins of
-``ingest/featurize.py`` (a store with an applied lexical vocab raises).
+Counterpart of ``cadence_rag_tpu/ingest/sync.py`` over the port's index,
+cold tier and vocab adoption included.
 
 The reference's worker/API topology is coherent for free: worker writes
 land in the shared Postgres the API queries (reference
@@ -140,7 +138,9 @@ class StoreSyncer:
         # against the shared store) must be noticed BEFORE applying
         # mutations, or new-layout rows would land in an old-layout
         # index and score wrong silently. One cheap SELECT.
-        featurize.adopt_store_layout(self.store, self.index)
+        from ..core.vocab import adopt_store_layout
+
+        adopt_store_layout(self.store, self.index)
         with self.store.read() as conn:
             muts = conn.execute(
                 "SELECT seq, tbl, op, row_id, lex_sig, lex_dl "
@@ -335,6 +335,8 @@ class StoreSyncer:
                     n = corpus.count
                     live = corpus.h_started[:n] > np.iinfo(np.int32).min
                     index_ids = set(corpus.h_ids[:n][live].astype(int))
+                    if corpus.cold is not None:
+                        index_ids |= set(corpus.cold.live_ids().tolist())
                 missing = sorted(
                     store_ids - index_ids - corpus.deleted_ids
                 )
@@ -367,6 +369,12 @@ class StoreSyncer:
                         i for i, p in zip(emb_ids, pos)
                         if p >= 0 and not corpus.h_has_emb[p]
                     ]
+                    if corpus.cold is not None:
+                        cpos = corpus.cold.positions(emb_ids)
+                        need.extend(
+                            i for i, p in zip(emb_ids, cpos)
+                            if p >= 0 and not bool(corpus.cold.has_emb[p])
+                        )
                     if need:
                         placeholders = ",".join("?" * len(need))
                         with self.store.read() as conn:
@@ -404,9 +412,11 @@ class StoreSyncer:
                 except Exception:  # never kill the loop; next tick retries
                     logger.exception("sync.poll_failed")
                 try:
-                    # drift-triggered vocab rebuild (opt-in; not ported:
-                    # startup refuses LEX_VOCAB_AUTO_REBUILD)
-                    featurize.auto_rebuild_if_needed(self.store, self.index)
+                    # drift-triggered vocab rebuild (opt-in; rate-limited
+                    # inside, a no-op SELECT-free check when disabled)
+                    from ..core.vocab import auto_rebuild_if_needed
+
+                    auto_rebuild_if_needed(self.store, self.index)
                 except Exception:
                     logger.exception("sync.auto_rebuild_failed")
 

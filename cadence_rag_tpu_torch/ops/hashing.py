@@ -4,17 +4,18 @@ Counterpart of ``cadence_rag_tpu/ops/hashing.py``, trimmed to what the port
 calls: the lexical features (word tokens and char trigrams of the
 normalized text, FNV-1a 64 hashed, signed into ``dim`` buckets, BM25 term
 weights folded in at ingest and quantized to int8), the query vector with
-bucket-granularity idf, and the slot-addressed tech-token hashes. The
-vocab-head layout is not ported: the port's signatures use the plain
-single-hash layout, the JAX package's default. Every function here gives
-the JAX package's arrays bit for bit (tests/test_torch_copies.py).
+bucket-granularity idf, the slot-addressed tech-token hashes, and the
+vocab-head layout (``apply_vocab``: the learned head of ``core/vocab.py``
+gets dedicated buckets, everything else hashes into the tail). Every
+function here gives the JAX package's arrays bit for bit
+(tests/test_torch_copies.py, tests/test_torch_vocab.py).
 """
 
 from __future__ import annotations
 
 import functools
 import re
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -70,26 +71,49 @@ def raw_feature_arrays(text: str) -> Tuple[np.ndarray, np.ndarray]:
     return hashes, tfs
 
 
-def _buckets_and_signs(hashes: np.ndarray, dim: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Bucket from the low hash bits, sign from a decoupled high bit."""
+def apply_vocab(
+    hashes: np.ndarray, dim: int, vocab: Optional[np.ndarray]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Feature hashes -> (bucket int64, sign f32) under an optional vocab
+    head. ``vocab`` is a SORTED uint64 array, or None for the plain
+    single-hash layout (bucket from the low hash bits, sign from a decoupled
+    high bit). A hash found in the head takes its rank as a dedicated,
+    collision-free bucket in [0, T) with sign +1; every other hash goes
+    into the remaining [T, dim) tail."""
     hashes = np.asarray(hashes, dtype=np.uint64)
-    buckets = (hashes % np.uint64(dim)).astype(np.int64)
-    signs = np.where((hashes >> np.uint64(33)) & np.uint64(1), 1.0, -1.0).astype(
-        np.float32)
+    hash_signs = np.where(
+        (hashes >> np.uint64(33)) & np.uint64(1), 1.0, -1.0)
+    if vocab is None or vocab.size == 0:
+        buckets = (hashes % np.uint64(dim)).astype(np.int64)
+        return buckets, hash_signs.astype(np.float32)
+    head = int(vocab.size)
+    tail = dim - head
+    if tail < 1:
+        raise ValueError(f"vocab head {head} leaves no tail buckets of {dim}")
+    idx_c = np.minimum(np.searchsorted(vocab, hashes), head - 1)
+    in_head = vocab[idx_c] == hashes
+    buckets = np.where(
+        in_head,
+        idx_c.astype(np.int64),
+        np.int64(head) + (hashes % np.uint64(tail)).astype(np.int64),
+    )
+    signs = np.where(in_head, np.float32(1.0), hash_signs).astype(np.float32)
     return buckets, signs
 
 
 def doc_signature_from_raw(
     hashes: np.ndarray, tfs: np.ndarray, dim: int, avgdl: float,
+    vocab: Optional[np.ndarray] = None,
     k1: float = BM25_K1, b: float = BM25_B,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """One document's quantized BM25 signature from its raw features ->
-    (int8 weights (dim,), touched buckets int32, doc length)."""
+    """One document's quantized BM25 signature from its raw features, placed
+    under an optional vocab head -> (int8 weights (dim,), touched buckets
+    int32, doc length)."""
     dl = int(tfs.sum())
     norm = 1.0 - b + b * (dl / max(avgdl, 1.0))
     acc = np.zeros(dim, dtype=np.float32)
     if hashes.size:
-        buckets, signs = _buckets_and_signs(hashes, dim)
+        buckets, signs = apply_vocab(hashes, dim, vocab)
         tfs = tfs.astype(np.float64)
         w = (signs.astype(np.float64)
              * (tfs * (k1 + 1.0)) / (tfs + k1 * norm)).astype(np.float32)
@@ -99,15 +123,23 @@ def doc_signature_from_raw(
     return quant, touched, dl
 
 
-def query_feature_arrays(text: str, dim: int):
-    """A query hashed once -> (buckets, signs, clipped tfs); each corpus
-    applies its own idf."""
-    hashes, tfs = raw_feature_arrays(text)
+def query_feature_arrays_from_raw(
+    hashes: np.ndarray, tfs: np.ndarray, dim: int,
+    vocab: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(buckets, signs, clipped tfs) from a query's raw features under an
+    optional vocab head."""
     if hashes.size == 0:
         empty = np.zeros(0, dtype=np.int64)
         return empty, empty.astype(np.float32), empty.astype(np.float32)
-    buckets, signs = _buckets_and_signs(hashes, dim)
-    return buckets, signs, np.minimum(tfs, 3.0)
+    buckets, signs = apply_vocab(hashes, dim, vocab)
+    return buckets, signs, np.minimum(tfs.astype(np.float32), 3.0)
+
+
+def query_feature_arrays(text: str, dim: int):
+    """A query hashed once -> (buckets, signs, clipped tfs) in the plain
+    layout; each corpus applies its own idf."""
+    return query_feature_arrays_from_raw(*raw_feature_arrays(text), dim)
 
 
 def query_vector_from_features(
@@ -122,6 +154,10 @@ def query_vector_from_features(
     idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
     np.add.at(q, buckets, signs * idf * tfs)
     return q / LEX_QUANT_SCALE
+
+
+# the tech slots' addressing scheme; a checkpoint of another layout is refused
+TECH_LAYOUT_VERSION = 2
 
 
 @functools.lru_cache(maxsize=65536)

@@ -54,12 +54,12 @@ def main() -> None:
 
         set_store_only(True)
     worker_id = f"worker-{uuid.uuid4().hex[:8]}"
-    # the learned lexical vocab head is not ported: a store that has one
-    # applied cannot be featurized for, so refuse it up front
-    from ..ingest.featurize import refuse_applied_vocab
+    # featurize new documents under the store's active lexical vocab (the
+    # serving process and stored lex_sig blobs already follow it)
+    from ..core.vocab import activate_from_store, refresh_if_changed
     from ..store.db import get_store
 
-    refuse_applied_vocab(get_store())
+    activate_from_store(get_store())
 
     if args.once:
         status = work_once(worker_id)
@@ -68,10 +68,12 @@ def main() -> None:
     logger.info("worker.start id=%s", worker_id)
     while True:
         try:
-            # a long-lived worker must notice an offline build_lex_vocab
-            # run: new docs featurized under the plain layout would never
-            # be re-featurized (the apply pass has already moved past them)
-            refuse_applied_vocab(get_store())
+            # a long-lived worker must track offline build_lex_vocab runs:
+            # new docs featurized under a stale head layout would never be
+            # re-featurized (the apply pass has already moved past them)
+            switched = refresh_if_changed(get_store())
+            if switched is not None:
+                logger.info("worker.lex_vocab_switched version=%s", switched)
             status = work_once(worker_id)
         except Exception:
             logger.exception("worker.job_failed")

@@ -33,8 +33,8 @@ from ..core.index import get_index
 from ..device import DeviceLike
 from ..embed.provider import NOT_PORTED_PROVIDERS, provider_kind
 from ..engine.browse import expand_evidence, get_call, get_chunk, list_calls
-from ..engine.retrieve import RERANK_NOT_PORTED, retrieve_evidence
-from ..ingest.featurize import VOCAB_NOT_PORTED, refuse_applied_vocab
+from ..engine.rerank import NEURAL_NOT_PORTED, NEURAL_PROVIDERS
+from ..engine.retrieve import retrieve_evidence
 from ..ingest.fs_queue import get_ingest_job, list_ingest_jobs
 from ..ingest.ingest import ingest_analysis, ingest_call, ingest_transcript
 from ..logging_utils import (
@@ -358,13 +358,16 @@ def retrieve_batch_endpoint(req: Request):
 
 
 def index_stats_endpoint(_req: Request):
+    from ..core.vocab import drift_stats
+    from ..ingest import featurize
     from ..ingest.sync import get_syncer
 
     index = get_index()
     syncer = get_syncer()
+    vocab, vocab_version = featurize.active_vocab()
 
     def corpus_stats(corpus):
-        return {
+        out = {
             "count": corpus.count,
             "capacity": corpus.capacity,
             "embedded": int(corpus.h_has_emb[: corpus.count].sum()),
@@ -375,6 +378,22 @@ def index_stats_endpoint(_req: Request):
             "tombstones": corpus.tombstones,
             "ivf_built": corpus.ivf is not None,
         }
+        if corpus.cold is not None:
+            out["cold_tier"] = {
+                "count": corpus.cold.count,
+                "live": corpus.cold.live_count,
+                "embedded": corpus.cold.emb_rows,
+                "tombstones": corpus.cold.tombstones,
+                "max_device_rows": corpus.max_device_rows,
+            }
+        if vocab is not None:
+            out["lex_vocab"] = {
+                "version": vocab_version,
+                "head": int(vocab.size),
+                "auto_rebuild": bool(settings.lex_vocab_auto_rebuild),
+                **drift_stats(corpus, vocab),
+            }
+        return out
 
     return 200, {
         "device": str(index.device),
@@ -401,10 +420,9 @@ def _unported_settings() -> List[str]:
     """Why the current settings cannot be served by the port: one line
     per setting whose feature is not ported, naming its ROADMAP item."""
     problems = []
-    if settings.lex_vocab_auto_rebuild:
-        problems.append(f"LEX_VOCAB_AUTO_REBUILD: {VOCAB_NOT_PORTED}")
-    if settings.rerank_enabled:
-        problems.append(RERANK_NOT_PORTED)
+    if settings.rerank_enabled and settings.rerank_provider in NEURAL_PROVIDERS:
+        problems.append(
+            NEURAL_NOT_PORTED.format(provider=settings.rerank_provider))
     if provider_kind() in NOT_PORTED_PROVIDERS:
         problems.append(
             f"EMBEDDINGS_PROVIDER={provider_kind()!r}: the in-process "
@@ -429,9 +447,11 @@ def startup(device: DeviceLike = "cuda") -> None:
     matmuls are pinned to full precision (``allow_tf32`` off): the IVF
     lane scores f32 queries (``ops/ivf.py``), and a process that had asked
     for TF32 would otherwise change its answers. An empty index is rebuilt
-    from the store; an index already populated in this process is
-    reconciled with the store (writes and deletes it missed); the store
-    syncer starts when ``STORE_SYNC_INTERVAL_S > 0``."""
+    from the store under the store's active lexical vocab; an index already
+    populated in this process (a restored checkpoint) must carry the
+    store's vocab, by content, and is reconciled with the store (writes and
+    deletes it missed); the store syncer starts when
+    ``STORE_SYNC_INTERVAL_S > 0``."""
     configure_logging(settings.log_level)
     problems = _unported_settings()
     if problems:
@@ -441,7 +461,6 @@ def startup(device: DeviceLike = "cuda") -> None:
         ok, message = store.validate_versions()
         if not ok:
             raise RuntimeError(message)
-    refuse_applied_vocab(store)
     from ..ingest.ingest import rebuild_index_from_store
     from ..ingest.sync import get_syncer
 
@@ -454,12 +473,36 @@ def startup(device: DeviceLike = "cuda") -> None:
     # and logged dedupe on doc_id)
     syncer.init_watermark()
     if index.chunks.count == 0 and index.artifacts.count == 0:
+        # point featurizers at the store's active lexical vocab BEFORE any
+        # query/ingest featurization (stored lex_sig blobs were written
+        # under it, so the rebuilt device rows match by construction)
+        from ..core.vocab import activate_from_store
+
+        activate_from_store(store)
         counts = rebuild_index_from_store()
         logger.info("api.startup index_rebuilt chunks=%s artifacts=%s", *counts)
     else:
-        # pre-populated index: diff against the store so writes that
-        # happened while this process was down, or rows deleted since, are
-        # applied
+        # pre-populated index (checkpoint restore): diff against the
+        # store so writes that happened while this process was down, or
+        # rows deleted since the snapshot, are applied
+        from ..core.vocab import load_vocab, vocab_digest
+        from ..ingest import featurize
+
+        active_vocab, active_version = featurize.active_vocab()
+        stored = load_vocab(store)
+        store_version = stored[1] if stored is not None else 0
+        store_sha = vocab_digest(stored[0]) if stored is not None else ""
+        # digests, not just version counters: two stores can each mint
+        # their own v1 with different head hashes
+        if (store_version != active_version
+                or store_sha != vocab_digest(active_vocab)):
+            raise RuntimeError(
+                f"restored index carries lex vocab v{active_version} but "
+                f"the store's active vocab is v{store_version} (content "
+                "compared by digest); re-snapshot after "
+                "scripts/build_lex_vocab, or delete the stale checkpoint "
+                "and let startup rebuild from the store"
+            )
         counts = syncer.reconcile()
         logger.info("api.startup index_reconciled %s", counts)
     if float(settings.store_sync_interval_s) > 0:

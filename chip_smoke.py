@@ -70,11 +70,45 @@ final result line:
              call. (4) K1 and K3 against their plain versions on the
              compacted tensors and at the compacted (ragged) row counts for
              the shapes this phase dispatched; both must have launched.
+6d. lifecycle — restart, spill and grow. On the served index, store and
+             server, after the writes phase: (1) rounds of evidence packs
+             with ``RERANK_ENABLED`` (lexical provider) beside unreranked
+             rounds, every reranked answer reporting ``reranked_from``; the
+             real gate with ``rerank_provider="lexical"`` against its
+             floors. (3) ``save_index`` of the served index, blocking and
+             ``block=False``, each under 128 concurrent /retrieve (seconds
+             the corpus locks were held, seconds to disk, bytes, the longest
+             request); a fresh ``DeviceIndexManager`` restored from it must
+             equal the served index array by array, put every known row
+             first, and hold K1 and K3 to their plain versions on its
+             tensors. (5) the chunks are filled to just under their capacity,
+             an insert past ``PREWARM_FILL_FRACTION`` starts the background
+             migration toward the planner's capacity, and inserts under
+             traffic cross the capacity: the growth must be
+             ``index.growth_swap``; afterwards every known row first and K1
+             and K3 held on the doubled tensors. On their own stores and
+             indexes: (2) ``build_and_apply`` of a 2048-wide vocab head over
+             110,000 documents of real text (windows of this checkout's
+             sources), every known document first, K1 on the re-scattered
+             ``lex`` tensor, a restart from a checkpoint through startup's
+             digest check with the rows bit-equal, and one through the
+             rebuild from the store. (4) an index capped at
+             ``INDEX_MAX_DEVICE_ROWS=524288`` takes the index-API phase's
+             chunks in their order (the rest in pinned host memory) and
+             serves its two batches: every lane must carry the uncapped
+             index's ids (a position may differ only where the scores agree
+             within 1e-5), every known row first through the index API and
+             the engine, a delete and a backfill in the cold tier, the
+             host-to-device rate beside a bare pinned copy's, K1 and K3 on a
+             block's own staged tensors. Last of all, (5) again with
+             ``GROWTH_MIGRATION_ENABLED=0`` on the index-API phase's index
+             under a thread that serves its batch: ``index.grow`` and its
+             steps timed one by one.
 6c. int8    — an index with ``INDEX_EMBEDDING_DTYPE=int8`` (300,037 chunks,
              30,011 artifacts, known rows) serves one batch of 128 through
              the engine: planned ann, every known row first.
-             The kernels line's K1 and K3 launches are the serve and the
-             writes phases' together.
+             The kernels line's K1 and K3 launches are the serve, the
+             writes and the lifecycle phases' together.
 7. K2      — ``dense_scan`` against its plain version at batch 128 x 1M rows
              (a contiguous and a random 5% mask) and at a ragged 100,000
              rows, batch 64, with CUDA-event times beside the plain version
@@ -104,10 +138,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import json
 import logging
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -1204,7 +1240,7 @@ def kernel_device_ms(prof):
 
 def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
               warm_rounds=20, bench_iters=10, profile=True, window_ms=5,
-              write_rounds=40):
+              write_rounds=40, lifecycle_rounds=10):
     """The port's /retrieve request path: an index of ``n_chunks`` +
     ``n_artifacts`` synthetic rows on ``device`` with matching rows in a
     temporary SQLite store, the known rows ingested and embedded through
@@ -1219,7 +1255,6 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     of (a). Then the engine's host split, serial and pipelined QPS, and
     the real gate on ``device``, after the ``writes`` phase
     (``run_writes``) on the same index and store. -> summary"""
-    import shutil
     import tempfile
 
     from cadence_rag_tpu_torch.config import settings
@@ -1410,6 +1445,10 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
             device, index, workdir, dispatches, known_texts, known_ids,
             n_chunks, n_artifacts, concurrency=concurrency,
             traffic_rounds=write_rounds)
+        summary["lifecycle"] = run_lifecycle_served(
+            device, index, workdir, dispatches,
+            summary["writes"]["compaction"]["survivors"], concurrency=concurrency,
+            rounds=lifecycle_rounds, traffic_rounds=max(write_rounds // 3, 5))
     finally:
         if stop is not None:
             stop()
@@ -1425,12 +1464,14 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
             torch.cuda.empty_cache()
     from cadence_rag_tpu_torch.evals.real_gate import run_gate
 
-    outcome = run_gate(device=device)
-    summary["gate"] = outcome["metrics"]
-    low = {k: outcome["metrics"][k] for k, floor in GATE_FLOORS.items()
-           if outcome["metrics"][k] < floor}
-    if low or outcome["failures"]:
-        raise RuntimeError(f"real gate under its floors: {low} {outcome['failures']}")
+    for key, kwargs in (("gate", {}), ("gate_reranked", {"rerank_provider": "lexical"})):
+        outcome = run_gate(device=device, **kwargs)
+        summary[key] = outcome["metrics"]
+        low = {k: outcome["metrics"][k] for k, floor in GATE_FLOORS.items()
+               if outcome["metrics"][k] < floor}
+        if low or outcome["failures"]:
+            raise RuntimeError(
+                f"real {key} under its floors: {low} {outcome['failures']}")
     return summary
 
 
@@ -1497,6 +1538,58 @@ def answer_ids(data):
     chunks.update(q["chunk_id"] for q in data.get("quotes", []))
     artifacts.update(a["artifact_chunk_id"] for a in data.get("artifacts", []))
     return chunks, artifacts
+
+
+def run_under_traffic(port, workdir, dispatches, name, action, bodies_of_round,
+                      rounds):
+    """Run ``action`` while the client process sends rounds of concurrent
+    /retrieve requests: batches of ``rounds`` rounds, one after another,
+    until the action has ended. -> (rounds, action's result, its start and
+    end in seconds after the traffic's start)"""
+    box = {"rounds": []}
+    done = threading.Event()
+
+    def send():
+        try:
+            sent = 0
+            while True:
+                box["rounds"] += http_rounds(
+                    port, "/retrieve", lambda r: bodies_of_round(sent + r), rounds,
+                    workdir)
+                sent += rounds
+                if done.is_set():
+                    return
+        except Exception as exc:
+            box["error"] = exc
+
+    sender = threading.Thread(target=send, name=name)
+    served = len(dispatches.calls)
+    box["t0"] = time.time()
+    sender.start()
+    try:
+        # the client is up and its second round has been dispatched
+        wait_for(lambda: "error" in box or len(dispatches.calls) > served + 1,
+                 "the client's traffic")
+        began = time.time()
+        result = action()
+        ended = time.time()
+    finally:
+        done.set()
+        sender.join(900)
+    box["t1"] = time.time()
+    if "error" in box:
+        raise box["error"]
+    if not (box["t0"] < began and ended < box["t1"]):
+        raise RuntimeError(f"{name}: the traffic ended before the write did")
+    return box["rounds"], result, (began - box["t0"], ended - box["t0"])
+
+
+def traffic_latency(rounds):
+    lat = np.array([l for _w, res_ in rounds for _s, l, _d in res_]) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max()), "requests": int(lat.size),
+            "longest_round_ms": max(w for w, _r in rounds) * 1e3}
 
 
 class CompactLog:
@@ -1800,34 +1893,8 @@ def run_writes(device, index, workdir, dispatches, known_texts, known_ids,
                               for q in unique_queries(concurrency, 5000 + r)]
 
         def under_traffic(name, action):
-            """Run ``action`` while the client process sends rounds. ->
-            (rounds, action's result, its start and end on the wall clock)"""
-            box = {}
-
-            def send():
-                try:
-                    box["rounds"] = http_rounds(port, "/retrieve", ids_only,
-                                                traffic_rounds, workdir)
-                except Exception as exc:
-                    box["error"] = exc
-
-            sender = threading.Thread(target=send, name=name)
-            served = len(dispatches.calls)
-            box["t0"] = time.time()
-            sender.start()
-            # the client is up and its second round has been dispatched
-            wait_for(lambda: "error" in box or len(dispatches.calls) > served + 1,
-                     "the client's traffic")
-            began = time.time()
-            result = action()
-            ended = time.time()
-            sender.join(900)
-            box["t1"] = time.time()
-            if "error" in box:
-                raise box["error"]
-            if not (box["t0"] < began and ended < box["t1"]):
-                raise RuntimeError(f"{name}: the traffic ended before the write did")
-            return box["rounds"], result, (began - box["t0"], ended - box["t0"])
+            return run_under_traffic(port, workdir, dispatches, name, action,
+                                     ids_only, traffic_rounds)
 
         def tombstone_bulk():
             t = time.perf_counter()
@@ -1889,22 +1956,16 @@ def run_writes(device, index, workdir, dispatches, known_texts, known_ids,
         if status != 404:
             raise RuntimeError(f"GET of the deleted call answered {status}")
 
-        def latency(rounds):
-            lat = np.array([l for _w, res_ in rounds for _s, l, _d in res_]) * 1e3
-            return {"p50_ms": float(np.percentile(lat, 50)),
-                    "p99_ms": float(np.percentile(lat, 99)),
-                    "max_ms": float(lat.max()), "requests": int(lat.size),
-                    "longest_round_ms": max(w for w, _r in rounds) * 1e3}
-
         out["bulk_tombstones"] = {
             "chunks": int(bulk["chunks"].size),
             "artifact_chunks": int(bulk["artifact_chunks"].size),
             "chunks_s": bulk_s[0], "artifact_chunks_s": bulk_s[1],
-            "traffic": latency(bulk_rounds)}
+            "traffic": traffic_latency(bulk_rounds)}
         out["compaction"] = {
             "crossing_delete_ms": crossing_ms, "window_s": window,
-            "records": compactions.records, "traffic": latency(compact_rounds),
+            "records": compactions.records, "traffic": traffic_latency(compact_rounds),
             "count_after": live, "known_first": len(survivors),
+            "survivors": survivors,
             "deleted_chunks": len(gone_chunks),
             "deleted_artifact_chunks": len(gone_artifacts)}
         take_launches()
@@ -1933,7 +1994,6 @@ def run_int8_served(device, n_chunks, n_artifacts, batch, n_known):
     serves one batch through the engine: synthetic corpora plus known rows,
     ``batch`` ids_only requests naming them; the chunks must be planned ann
     with the dense lane on, and every known row must come first."""
-    import shutil
     import tempfile
 
     from cadence_rag_tpu_torch.config import settings
@@ -1994,6 +2054,768 @@ def run_int8_served(device, n_chunks, n_artifacts, batch, n_known):
             torch.cuda.empty_cache()
 
 
+# -- lifecycle: rerank, vocab, checkpoint, cold tier, growth -------------------
+GROW_KNOWN_TEXT = ("rollout {i}: the shard map moved to coordinator-{i} during the "
+                   "capacity doubling to v7.{i}.3, tracked in CAP-{t}")
+GROW_ID0 = 60_000_000
+GROW_HEADROOM = 700              # rows left free before the crossing inserts
+COLD_HOT_ROWS = 524_288
+VOCAB_DOCS = (100_000, 10_000)   # chunks, artifact chunks of the vocab step's store
+VOCAB_HEAD = 2048
+
+
+def spans_by_tag(spans):
+    """{tag: [seconds]} of the event ring's timed spans."""
+    out = {}
+    for ev in spans:
+        if "s" in ev:
+            out.setdefault(ev["tag"], []).append(ev["s"])
+    return out
+
+
+def synthetic_doc_rows(n, first_id, seed, dim, lex_dim, slots):
+    """n host-made DocRows (unit embeddings, random signatures and slots),
+    doc ids from ``first_id``: what an ingest hands ``CorpusIndex.insert``."""
+    from cadence_rag_tpu_torch.core.index import DocRow
+
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    lex = rng.integers(-4, 5, size=(n, lex_dim)).astype(np.int8)
+    tech = rng.integers(1, 5000, size=(n, slots)).astype(np.int32)
+    return [DocRow(doc_id=first_id + i, call_seq=int(rng.integers(0, N_CALLS)),
+                   started_sec=int(rng.integers(1_600_000_000, 1_750_000_000)),
+                   lex_sig=lex[i], lex_dl=12,
+                   lex_touched=np.flatnonzero(lex[i])[:32].astype(np.int32),
+                   tech=tech[i], embedding=emb[i]) for i in range(n)]
+
+
+def cross_capacity(corpus, first_id, seed):
+    """Insert batches of up to 512 host-made rows until the corpus's capacity
+    has changed. -> (seconds, rows inserted)"""
+    cap0 = corpus.capacity
+    chunk = max(1, min(512, cap0 // 8))
+    n = ((cap0 - corpus.count) // chunk + 2) * chunk
+    rows = synthetic_doc_rows(n, first_id, seed, corpus.dim, corpus.lex_dim,
+                              corpus.tech_slots)
+
+    def cross():
+        t = time.perf_counter()
+        for lo in range(0, n, chunk):
+            corpus.insert(rows[lo:lo + chunk])
+            if corpus.capacity != cap0:
+                return time.perf_counter() - t, lo + chunk
+        raise RuntimeError(f"{corpus.name}: {n} rows did not cross capacity {cap0}")
+
+    return cross
+
+
+def fill_to_headroom(corpus, seed):
+    """Fill the room the capacity has left down to ``GROW_HEADROOM`` rows (an
+    eighth of a small capacity) with synthetic rows. -> rows added"""
+    from cadence_rag_tpu_torch.evals.synth import append_synthetic_rows
+
+    headroom = min(GROW_HEADROOM, corpus.capacity // 8)
+    n = corpus.capacity - headroom - corpus.count
+    if n > 0:
+        append_synthetic_rows(corpus, n, N_CALLS, seed=seed)
+    return max(n, 0)
+
+
+def text_tokens(texts):
+    from cadence_rag_tpu_torch.ingest.chunking import extract_tech_tokens
+
+    return [extract_tech_tokens(t) for t in texts]
+
+
+def known_batch(index, texts, ids, batch):
+    """``batch`` unscoped queries naming known rows (text, id) of ``index``,
+    planned by the port. -> (args, modes, expected ids)"""
+    from cadence_rag_tpu_torch.evals.synth import plan_text_queries
+
+    which = [j % len(texts) for j in range(batch)]
+    picked = [texts[i] for i in which]
+    allowed = np.ones((batch, index.call_capacity), dtype=bool)
+    args, modes = plan_text_queries(index, picked, text_tokens(picked), allowed,
+                                    scoped=False)
+    return args, modes, np.array([ids[i] for i in which], dtype=np.int64)
+
+
+def same_corpus_state(got, want):
+    """The six device arrays (first ``count`` rows), the host mirrors, the
+    lexical stats and the counters of two corpora, compared on the device.
+    -> the name of the first thing that differs, or None."""
+    n = want.count
+    if got.count != n:
+        return "count"
+    for a, b, attr in zip(got.device_arrays(), want.device_arrays(),
+                          ("emb", "lex", "tech", "call_idx", "started", "has_emb")):
+        if not torch.equal(a[:n], b[:n]):
+            return attr
+    for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+        if not np.array_equal(getattr(got, attr)[:n], getattr(want, attr)[:n]):
+            return attr
+    if not np.array_equal(got.doc_freq, want.doc_freq):
+        return "doc_freq"
+    for attr in ("dl_sum", "tombstones", "emb_rows"):
+        if getattr(got, attr) != getattr(want, attr):
+            return attr
+    return None
+
+
+def first_ids_over_http(port, texts, workdir):
+    res = http_rounds(port, "/retrieve", lambda r: [
+        {"query": t, "return_style": "ids_only"} for t in texts], 1, workdir)
+    return [d["retrieved_ids"][:1] for _s, _l, d in res[0][1]]
+
+
+def run_lifecycle_served(device, index, workdir, dispatches, survivors,
+                         concurrency=128, rounds=10, traffic_rounds=20):
+    """The lifecycle steps that run on the served index, its store and its
+    server (see the module docstring, phase 6d): the rerank lane under
+    traffic, a checkpoint saved under traffic and restored into a fresh
+    index, and a capacity doubling through the background migration under
+    traffic. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.checkpoint import restore_index, save_index
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.core.prewarm import free_hbm_bytes, plan_next_capacity
+    from cadence_rag_tpu_torch.evals.synth import insert_text_rows
+    from cadence_rag_tpu_torch.utils import events
+
+    from collections import Counter
+
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+
+    out = {}
+    launches = Counter()
+
+    def kernel_checks(corpora, capacity, seed):
+        """K1 and K3 against their plain versions on each corpus's tensors;
+        the launches of these comparisons are not the path's."""
+        launches.update(fused_scan=fused_scan.launches, tech_topk=range_topk.launches)
+        checks = [check_kernels_on_corpus(c, capacity, concurrency, seed + i)
+                  for i, c in enumerate(corpora)]
+        fused_scan.launches = 0
+        range_topk.launches = 0
+        return checks
+
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    known_texts = [t for t, _i in survivors]
+    known_ids = [i for _t, i in survivors]
+    want_first = [[f"chunk:{i}"] for i in known_ids]
+    port, stop = start_server()
+    try:
+        # 1. the rerank lane under (b)-traffic, beside an unreranked round
+        packs = lambda salt: (lambda r: [
+            {"query": q} for q in unique_queries(concurrency, salt + r)])
+        http_rounds(port, "/retrieve", packs(30_000), 1, workdir)
+        plain = http_rounds(port, "/retrieve", packs(30_100), rounds, workdir)
+        settings.rerank_enabled, settings.rerank_provider = True, "lexical"
+        try:
+            http_rounds(port, "/retrieve", packs(30_200), 1, workdir)
+            reranked = http_rounds(port, "/retrieve", packs(30_300), rounds, workdir)
+        finally:
+            settings.rerank_enabled = False
+        notes = lambda res: [d["notes"]["retrieval"] for _w, r in res for _s, _l, d in r]
+        if any(n["reranked_from"] is not None for n in notes(plain)):
+            raise RuntimeError("rerank: an unreranked answer reports reranked_from")
+        if not all((n["reranked_from"] or 0) >= 1 for n in notes(reranked)):
+            raise RuntimeError("rerank: an answer under RERANK_ENABLED was not reranked")
+        out["rerank"] = {
+            "plain": round_stats(plain), "reranked": round_stats(reranked),
+            "rerank_ms": float(np.mean([n["timings_ms"]["rerank_ms"]
+                                        for n in notes(reranked)])),
+            "reranked_from": float(np.mean([n["reranked_from"]
+                                            for n in notes(reranked)]))}
+
+        # 3. checkpoint: saved under traffic, restored into a fresh index
+        ckpt = workdir / "ckpt"
+        ids_only = lambda r: [{"query": q, "return_style": "ids_only"}
+                              for q in unique_queries(concurrency, 40_000 + r)]
+        saves = {}
+        for name, block in (("blocking", True), ("background", False)):
+            if saves and shutil.disk_usage(workdir).free < 2.2 * saves["blocking"]["bytes"]:
+                # no room for two generations side by side: drop the first
+                shutil.rmtree(ckpt)
+            def save(block=block):
+                t = time.perf_counter()
+                meta = save_index(str(ckpt), index, block=block)
+                returned = time.perf_counter() - t
+                if not block:
+                    meta["_writer"].join(900)
+                return returned, time.perf_counter() - t, meta["generation"]
+
+            events.enable()
+            try:
+                traffic, (returned, total, generation), _window = run_under_traffic(
+                    port, workdir, dispatches, f"checkpoint {name}", save, ids_only,
+                    traffic_rounds)
+                spans = spans_by_tag(events.drain())
+            finally:
+                events.disable()
+            saves[name] = {
+                "call_returned_s": returned, "to_disk_s": total,
+                "generation": generation,
+                "lock_s": sum(spans["index.checkpoint_snapshot"]),
+                "pinned_alloc_s": sum(spans.get("index.checkpoint_pinned_alloc", [0.0])),
+                "write_s": sum(spans["checkpoint.write"]),
+                "bytes": sum(f.stat().st_size for f in ckpt.iterdir()),
+                "traffic": traffic_latency(traffic)}
+        t0 = time.perf_counter()
+        fresh = DeviceIndexManager(device)
+        meta = restore_index(str(ckpt), fresh)
+        sync()
+        restore_s = time.perf_counter() - t0
+        args, modes, expected = known_batch(fresh, known_texts, known_ids, concurrency)
+        check_first(serve_batch(fresh, args, modes), expected, "restored index")
+        serving_s = time.perf_counter() - t0
+        for got, want in ((fresh.chunks, index.chunks), (fresh.artifacts, index.artifacts)):
+            differs = same_corpus_state(got, want)
+            if differs:
+                raise RuntimeError(f"restored {want.name}: {differs} differs from "
+                                   "the served index")
+        out["checkpoint"] = {
+            "saves": saves, "restore_s": restore_s, "to_serving_s": serving_s,
+            "rows": {k: int(v) for k, v in meta["counts"].items()},
+            "known_first": len(known_ids),
+            "kernels": kernel_checks((fresh.chunks, fresh.artifacts),
+                                     fresh.call_capacity, 80)}
+        del fresh, args
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 5. growth through the background migration, under traffic
+        corpus = index.chunks
+        cap0 = corpus.capacity
+        t = time.perf_counter()
+        filled = fill_to_headroom(corpus, seed=70)
+        sync()
+        fill_s = time.perf_counter() - t
+        free = free_hbm_bytes(device)
+        planned = plan_next_capacity(corpus, cap0 + 1, concurrency)
+        grow_texts = [GROW_KNOWN_TEXT.format(i=i, t=6300 + i) for i in range(N_KNOWN)]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        events.enable()
+        try:
+            t = time.perf_counter()
+            # a real insert past PREWARM_FILL_FRACTION: the trigger
+            insert_text_rows(corpus, grow_texts, text_tokens(grow_texts),
+                             doc_id0=GROW_ID0, call_seq=KNOWN_CALL,
+                             started0=KNOWN_STARTED + 10_000)
+            migration = corpus._migration
+            if migration is None or migration.new_cap != planned:
+                raise RuntimeError(f"growth: no migration toward {planned} started")
+            if not migration.ready.wait(300):
+                raise RuntimeError("growth: the migration never became ready")
+            ready_s = time.perf_counter() - t
+            traffic, (inserts_s, crossed_rows), _window = run_under_traffic(
+                port, workdir, dispatches, "growth swap",
+                cross_capacity(corpus, 70_000_000, 71), ids_only, traffic_rounds)
+            sync()
+            spans = spans_by_tag(events.drain())
+        finally:
+            events.disable()
+        if corpus.capacity != planned or corpus._migration is not None:
+            raise RuntimeError(f"growth: capacity {corpus.capacity}, planned {planned}")
+        if "index.growth_swap" not in spans or "index.grow" in spans:
+            raise RuntimeError(f"growth: spans {sorted(spans)}: the swap did not happen")
+        texts = known_texts + grow_texts
+        firsts = first_ids_over_http(port, texts, workdir)
+        want = want_first + [[f"chunk:{GROW_ID0 + i}"] for i in range(N_KNOWN)]
+        if firsts != want:
+            wrong = [(w, g) for w, g in zip(want, firsts) if w != g]
+            raise RuntimeError(f"after the growth {len(wrong)} known rows are not "
+                               f"first, e.g. {wrong[0]}")
+        out["growth_migration"] = {
+            "old_capacity": cap0, "capacity": corpus.capacity, "rows": corpus.count,
+            "filled_rows": filled, "fill_s": fill_s, "free_bytes": free,
+            "planned": planned, "ready_s": ready_s,
+            "crossing_inserts_s": inserts_s, "crossing_rows": crossed_rows,
+            "alloc_fill_s": sum(spans["index.migration_alloc"]),
+            "copy_s": sum(spans["index.migration_copy"]),
+            "swap_s": sum(spans["index.growth_swap"]),
+            "mirrors_s": sum(spans["index.grow_mirrors"]),
+            "held_bytes": held if cuda else None,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+            "traffic": traffic_latency(traffic), "known_first": len(want),
+            "kernels": kernel_checks((corpus,), index.call_capacity, 90)}
+        launches.update(fused_scan=fused_scan.launches, tech_topk=range_topk.launches)
+        out["launches"] = dict(launches)
+    finally:
+        stop()
+    return out
+
+
+def source_texts(n):
+    """n distinct documents of real text: windows of three consecutive
+    non-empty lines of this checkout's own Markdown and Python sources
+    (then of two and of four lines, if three do not give enough)."""
+    root = Path(__file__).resolve().parent
+    files = sorted(p for pat in ("*.md", "*.py", "*/*.py", "*/*/*.py", "*/*.md")
+                   for p in root.glob(pat))
+    lines = []
+    for path in files:
+        try:
+            lines += [ln.strip() for ln in path.read_text(errors="ignore").splitlines()
+                      if len(ln.strip()) >= 12]
+        except OSError:
+            continue
+    seen, out = set(), []
+    for width in (3, 2, 4, 5):
+        for i in range(0, len(lines) - width):
+            text = " ".join(lines[i:i + width])[:600]
+            key = " ".join(text.lower().split())
+            if key not in seen:
+                seen.add(key)
+                out.append(text)
+                if len(out) == n:
+                    return out
+    raise RuntimeError(f"the checkout's sources give {len(out)} distinct documents, "
+                       f"not {n}")
+
+
+def run_vocab(device, n_chunks, n_artifacts, head, n_known, batch):
+    """The learned vocab head at work (phase 6d, step 2): a store of
+    ``n_chunks`` + ``n_artifacts`` documents of real text (``source_texts``)
+    and an index over the same ids; ``build_and_apply`` learns the head and
+    re-featurizes every document (store blobs, device rows, df tables); then
+    every known document must come first for its own text, K1 is held to its
+    plain version on the re-scattered ``lex`` tensor, a restart from a
+    checkpoint passes startup's digest check with the rows bit-equal, and a
+    restart without one rebuilds the index from the store. -> summary"""
+    import tempfile
+
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.core.checkpoint import restore_index, save_index
+    from cadence_rag_tpu_torch.core.vocab import (
+        activate_from_store, build_and_apply, vocab_digest,
+    )
+    from cadence_rag_tpu_torch.embed.stub import HashEmbeddingProvider
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
+    from cadence_rag_tpu_torch.evals.synth import bulk_store_rows, install_synthetic_corpus
+    from cadence_rag_tpu_torch.ingest import featurize
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
+    from cadence_rag_tpu_torch.serve.api import startup
+    from cadence_rag_tpu_torch.store.db import get_store, reset_store
+    from cadence_rag_tpu_torch.utils import events
+
+    device = torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_vocab_"))
+    overrides = {"store_path": str(workdir / "vocab.db"), "embeddings_provider": "stub",
+                 "embeddings_base_url": "", "store_sync_interval_s": 0.0,
+                 "log_level": "WARNING"}
+    saved = {key: getattr(settings, key) for key in overrides}
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    try:
+        texts = source_texts(n_chunks + n_artifacts)
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        index = core_index.get_index(device)
+        index.ensure_call_capacity(N_CALLS)
+        install_synthetic_corpus(index.chunks, n_chunks, N_CALLS, seed=0)
+        install_synthetic_corpus(index.artifacts, n_artifacts, N_CALLS, seed=1)
+        store = get_store()
+        bulk_store_rows(store, n_chunks, n_artifacts, N_CALLS,
+                        chunk_text=lambda i: texts[i],
+                        artifact_text=lambda i: texts[n_chunks + i])
+        step = n_chunks // n_known
+        known_ids = [1 + j * step for j in range(n_known)]
+        known_texts = [texts[i - 1] for i in known_ids]
+        vecs = np.asarray(HashEmbeddingProvider().embed(known_texts).vectors, np.float32)
+        index.chunks.set_embeddings(known_ids, vecs)
+        requests = [RetrieveRequest(query=known_texts[j % n_known], return_style="ids_only")
+                    for j in range(batch)]
+        want = [[f"chunk:{known_ids[j % n_known]}"] for j in range(batch)]
+
+        def known_first(what):
+            got = [a["retrieved_ids"][:1] for a in retrieve_evidence_batch(requests)]
+            if got != want:
+                wrong = [(w, g) for w, g in zip(want, got) if w != g]
+                raise RuntimeError(f"vocab, {what}: {len(wrong)} known documents not "
+                                   f"first, e.g. {wrong[0]}")
+
+        events.enable()
+        try:
+            summary = build_and_apply(store, index, head=head)
+            spans = spans_by_tag(events.drain())
+        finally:
+            events.disable()
+        vocab, version = featurize.active_vocab()
+        if vocab is None or vocab.size != head or summary["version"] != version:
+            raise RuntimeError(f"vocab: {summary}, active head "
+                               f"{None if vocab is None else vocab.size}")
+        live = sum(c["live_rows"] for c in summary["corpora"].values())
+        if live != n_chunks + n_artifacts:
+            raise RuntimeError(f"vocab: {live} rows re-scattered of "
+                               f"{n_chunks + n_artifacts}")
+        known_first("after the apply")
+        kernels = check_kernels_on_corpus(index.chunks, index.call_capacity, batch, 100)
+        # a restart from a checkpoint: the store's vocab activates, the
+        # checkpoint's matches it by content, the rows are bit-equal
+        n = index.chunks.count
+        lex = index.chunks.lex[:n].clone()
+        save_index(str(workdir / "ckpt"), index)
+        core_index.reset_index()
+        if featurize.active_vocab() != (None, 0):
+            raise RuntimeError("vocab: reset_index left a vocab active")
+        if activate_from_store(store) != version:
+            raise RuntimeError("vocab: the store's vocab did not activate")
+        t0 = time.perf_counter()
+        restored = core_index.get_index(device)
+        meta = restore_index(str(workdir / "ckpt"), restored)
+        startup(device)              # the digest check, then a reconcile
+        sync()
+        restart_s = time.perf_counter() - t0
+        if (meta["lex_vocab_sha"] != vocab_digest(featurize.active_vocab()[0])
+                or not torch.equal(restored.chunks.lex[:n], lex)):
+            raise RuntimeError("vocab: the restored index differs from the saved one")
+        known_first("after the restart from a checkpoint")
+        # a restart without one: startup rebuilds the index from the store,
+        # whose blobs the apply rewrote: the same signatures (the rebuilt
+        # rows have no embeddings: this store holds none)
+        del restored
+        core_index.reset_index()
+        t0 = time.perf_counter()
+        startup(device)
+        sync()
+        rebuild_s = time.perf_counter() - t0
+        rebuilt = core_index.get_index()
+        if (rebuilt.chunks.count, rebuilt.artifacts.count) != (n_chunks, n_artifacts):
+            raise RuntimeError(f"vocab: rebuilt {rebuilt.chunks.count} + "
+                               f"{rebuilt.artifacts.count} rows")
+        if featurize.active_vocab()[1] != version:
+            raise RuntimeError("vocab: the rebuild did not activate the store's vocab")
+        if not torch.equal(rebuilt.chunks.lex[:n], lex):
+            raise RuntimeError("vocab: the rows rebuilt from the store's blobs differ "
+                               "from the re-scattered ones")
+        return {"documents": n_chunks + n_artifacts, "head": int(vocab.size),
+                "version": version, "learn_s": sum(spans["vocab.learn"]),
+                "apply_s": sum(spans["vocab.apply"]), "rows_rescattered": live,
+                "native_featurizer": featurize.native_available(),
+                "known_first": n_known, "kernels": kernels,
+                "restart_from_checkpoint_s": restart_s,
+                "rebuild_from_store_s": rebuild_s}
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def lanes_differ(got, want, atol=1e-5):
+    """Two (chunks, artifacts) lane outputs -> (positions whose ids differ,
+    those of them whose scores differ by more than ``atol`` too, the largest
+    score difference)."""
+    moved = apart = 0
+    worst = 0.0
+    for g_corpus, w_corpus in zip(got, want):
+        for lane, (ids, scores, counts) in w_corpus.items():
+            g_ids, g_scores, g_counts = g_corpus[lane]
+            if not np.array_equal(g_counts, counts):
+                return -1, -1, float("inf")
+            for b, m in enumerate(counts):
+                diff = np.abs(g_scores[b, :m] - scores[b, :m])
+                worst = max(worst, float(diff.max(initial=0.0)))
+                other = g_ids[b, :m] != ids[b, :m]
+                moved += int(other.sum())
+                apart += int((other & (diff > atol)).sum())
+    return moved, apart, worst
+
+
+def run_cold_tier(device, full, batches, hot_rows, n_known, batch):
+    """The host cold tier (phase 6d, step 4): an index capped at ``hot_rows``
+    device rows takes the rows of ``full``'s chunks in their order (the rest
+    go to pinned host memory), then serves the main path's batches through
+    the index API and the engine. Every lane must carry the uncapped index's
+    ids, every known row (they all sit in the cold tier) must come first, a
+    delete and a backfill must land in the cold tier, and K1 and K3 are held
+    to their plain versions on a block's own staged tensors. -> summary"""
+    import tempfile
+    import types
+
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.core.coldtier import ColdTier
+    from cadence_rag_tpu_torch.embed.stub import HashEmbeddingProvider
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
+    from cadence_rag_tpu_torch.evals.coldtier_bench import bare_h2d_gbps
+    from cadence_rag_tpu_torch.evals.synth import install_capped_copy, plan_text_queries
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
+    from cadence_rag_tpu_torch.store.db import reset_store
+    from cadence_rag_tpu_torch.utils import events
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_cold_"))
+    overrides = {"store_path": str(workdir / "cold.db"), "embeddings_provider": "stub",
+                 "embeddings_base_url": "", "index_max_device_rows": hot_rows}
+    saved = {key: getattr(settings, key) for key in overrides}
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    try:
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        capped = core_index.get_index(device)
+        capped.ensure_call_capacity(N_CALLS)
+        events.enable()
+        try:
+            t0 = time.perf_counter()
+            install_capped_copy(full.chunks, capped.chunks)
+            sync()
+            install_s = time.perf_counter() - t0
+            spans = spans_by_tag(events.drain())
+        finally:
+            events.disable()
+        capped.artifacts.load_state(full.artifacts.state_arrays())
+        tier = capped.chunks.cold
+        if capped.chunks.count != hot_rows or tier is None or (
+                capped.chunks.count + tier.count != full.chunks.count):
+            raise RuntimeError(f"cold: {capped.chunks.count} hot rows")
+        block = int(settings.cold_block_rows)
+        out = {"hot_rows": hot_rows, "cold_rows": tier.count, "block_rows": block,
+               "blocks": -(-tier.count // block), "install_s": install_s,
+               "pinned_alloc_s": sum(spans.get("coldtier.alloc", [0.0])),
+               "pinned_bytes": sum(a.numel() * a.element_size()
+                                   for a in tier.row_arrays()),
+               "pinned": bool(tier.emb.is_pinned()) if cuda else False,
+               "batches": {}}
+        if cuda and not out["pinned"]:
+            raise RuntimeError("cold: the tier's rows are not in pinned memory")
+
+        def lanes(index, args, modes):
+            return index.collect_packed(index.query_both_packed_async(
+                *args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS, chunk_mode=modes[0],
+                artifact_mode=modes[1], recall_target=0.95, fuse_rrf=True))
+
+        for name, args, modes, expected in batches:
+            want = full.collect_packed(full.query_both_packed_async(
+                *args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS, chunk_mode=modes[0],
+                artifact_mode=modes[1], recall_target=0.95, fuse_rrf=False))
+            got = lanes(capped, args, modes)       # device RRF stands down
+            moved, apart, worst = lanes_differ(got, want)
+            if apart:
+                raise RuntimeError(
+                    f"cold ({name}, {modes}): {apart} lane positions carry another "
+                    f"id than the uncapped index's with scores more than 1e-5 apart")
+            check_first_lanes(got, expected, f"cold {name}")
+            shipped0 = ColdTier.bytes_shipped
+            times, hot_times = [], []
+            for _ in range(4):
+                t = time.perf_counter()
+                lanes(capped, args, modes)
+                times.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                serve_batch(full, args, modes)
+                hot_times.append((time.perf_counter() - t) * 1e3)
+            shipped = (ColdTier.bytes_shipped - shipped0) / 4
+            out["batches"][name] = {
+                "modes": modes, "ids_moved": moved, "max_score_diff": worst,
+                "batch_ms": times[1:], "all_hot_batch_ms": hot_times[1:],
+                "bytes_shipped": shipped,
+                "h2d_gbs": shipped / (float(np.median(times[1:])) / 1e3) / 1e9}
+        if cuda:
+            out["bare_copy_gbs"] = bare_h2d_gbps(tier, min(block, tier.count))
+            out["bound_ms"] = (out["batches"]["unscoped"]["bytes_shipped"]
+                               / out["bare_copy_gbs"] / 1e6)
+        # through the engine: every known row (all in the cold tier) first
+        texts, tokens = known_rows(n_known)
+        if not all(tier.contains(KNOWN_ID0 + i) for i in range(n_known)):
+            raise RuntimeError("cold: the known rows are not in the cold tier")
+        requests = [RetrieveRequest(query=texts[j % n_known], return_style="ids_only")
+                    for j in range(batch)]
+
+        def engine_firsts():
+            return [a["retrieved_ids"][:1] for a in retrieve_evidence_batch(requests)]
+
+        want = [[f"chunk:{KNOWN_ID0 + j % n_known}"] for j in range(batch)]
+        if engine_firsts() != want:
+            raise RuntimeError("cold: a known row is not first through the engine")
+        # a delete and a backfill that land in the cold tier
+        n_cold = tier.count
+        victims = [int(i) for i in tier.ids[1000:1064]] + [KNOWN_ID0]
+        probes = [int(i) for i in tier.ids[n_cold // 2: n_cold // 2 + 8]]
+        probe_texts = [f"backfill probe {i} of the cold tier shard" for i in range(8)]
+        vecs = np.asarray(HashEmbeddingProvider().embed(probe_texts).vectors, np.float32)
+        if capped.chunks.delete_ids(victims) != len(victims):
+            raise RuntimeError("cold: the delete did not reach every cold row")
+        if capped.chunks.set_embeddings(probes, vecs) != len(probes):
+            raise RuntimeError("cold: the backfill did not reach every cold row")
+        firsts = engine_firsts()
+        if firsts[0] == want[0] or firsts[1:n_known] != want[1:n_known]:
+            raise RuntimeError("cold: after the delete the known rows answer wrong")
+        allowed = np.ones((8, capped.call_capacity), dtype=bool)
+        args, modes = plan_text_queries(capped, probe_texts, text_tokens(probe_texts),
+                                        allowed, scoped=False)
+        dense = lanes(capped, args, modes)[0]["dense"]
+        if [int(r[0]) for r in dense[0]] != probes:
+            raise RuntimeError("cold: a backfilled cold row is not first in the dense lane")
+        out.update(deleted=len(victims), backfilled=len(probes),
+                   tombstones=tier.tombstones, known_first=n_known - 1)
+        out["launches"] = {"fused_scan": fused_scan.launches,
+                           "tech_topk": range_topk.launches}
+        if cuda and min(out["launches"].values()) <= 0:
+            raise RuntimeError(f"the cold tier step did not launch K1 and K3: "
+                               f"{out['launches']}")
+        # K1 and K3 on a block's own tensors: the full first block, the tail
+        staging = tier._staging_for(min(block, tier.count))
+        out["kernels"] = []
+        for start in (0, (tier.count // block) * block):
+            stop = min(start + block, tier.count)
+            if stop <= start:
+                continue
+            arrays = tuple(s[: stop - start] for s in staging)
+            for dst, src in zip(arrays, tier.row_arrays()):
+                dst.copy_(src[start:stop], non_blocking=True)
+            shaped = types.SimpleNamespace(
+                name=f"cold block at row {start}", device=device,
+                lock=capped.chunks.lock, count=stop - start,
+                device_arrays=lambda arrays=arrays: arrays)
+            out["kernels"].append(check_kernels_on_corpus(
+                shaped, capped.call_capacity, batch, 110 + start % 7))
+        return out
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def run_sync_growth(device, index, batches, batch):
+    """A capacity doubling with ``GROWTH_MIGRATION_ENABLED=0`` (phase 6d,
+    step 5, second half), on the index-API phase's own index, under a thread
+    that serves the main path's unscoped batch through the index API all the
+    while: the ``index.grow`` span, the longest batch across it beside the
+    median, and the same steps timed one by one on arrays of the same shapes
+    (allocation, fill, copy, host mirrors). -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.utils import events
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    corpus = index.chunks
+    corpus.ivf = None                 # the batches below are planned ann/exact
+    with corpus.lock:
+        # the known rows' insert took this corpus past PREWARM_FILL_FRACTION
+        # long ago: drop the migration that has stood ready since
+        corpus._cancel_migration_locked()
+    if cuda:
+        torch.cuda.empty_cache()
+    cap0 = corpus.capacity
+    enabled = settings.growth_migration_enabled
+    settings.growth_migration_enabled = False
+    try:
+        filled = fill_to_headroom(corpus, seed=72)
+        # the steps of a doubling, one by one, on the same shapes
+        split = {}
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        probe = [torch.empty((2 * cap0,) + tuple(a.shape[1:]), dtype=a.dtype, device=device)
+                 for a in corpus.device_arrays()]
+        sync()
+        split["allocation_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for a in probe:
+            a.zero_()
+        sync()
+        split["fill_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for new, old in zip(probe, corpus.device_arrays()):
+            new[:cap0].copy_(old)
+        sync()
+        split["copy_s"] = time.perf_counter() - t
+        del probe
+        if cuda:
+            torch.cuda.empty_cache()     # the growth below allocates anew
+        _name, args, modes, _expected = batches[0]
+        stop, samples, errors = threading.Event(), [], []
+
+        def serve():
+            try:
+                while not stop.is_set():
+                    t = time.perf_counter()
+                    serve_batch(index, args, modes)
+                    samples.append((time.time(), (time.perf_counter() - t) * 1e3))
+            except Exception as exc:
+                errors.append(exc)
+
+        cross = cross_capacity(corpus, 80_000_000, 73)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        server = threading.Thread(target=serve, name="index-api traffic")
+        server.start()
+        events.enable()
+        try:
+            wait_for(lambda: errors or len(samples) >= 5, "the index-API traffic")
+            began = time.time()
+            inserts_s, crossed_rows = cross()
+            ended = time.time()
+            wait_for(lambda: errors or (samples and samples[-1][0] > ended + 0.2),
+                     "batches after the growth")
+            spans = spans_by_tag(events.drain())
+        finally:
+            events.disable()
+            stop.set()
+            server.join(120)
+        if errors:
+            raise errors[0]
+        if corpus.capacity <= cap0 or "index.grow" not in spans:
+            raise RuntimeError(f"growth: capacity {corpus.capacity}, spans {sorted(spans)}")
+        split["host_mirrors_s"] = sum(spans["index.grow_mirrors"])
+        ms = np.array([m for _t, m in samples])
+        across = [m for t_, m in samples if t_ >= began]
+        for name, b_args, b_modes, expected in batches:
+            check_first(serve_batch(index, b_args, b_modes), expected,
+                        f"after the growth, {name}")
+        return {"old_capacity": cap0, "capacity": corpus.capacity, "rows": corpus.count,
+                "filled_rows": filled, "crossing_inserts_s": inserts_s,
+                "crossing_rows": crossed_rows,
+                "grow_s": sum(spans["index.grow"]), "split": split,
+                "held_bytes": held if cuda else None,
+                "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+                "batches": int(ms.size), "batch_p50_ms": float(np.median(ms)),
+                "longest_batch_ms": float(max(across)),
+                "kernels": [check_kernels_on_corpus(corpus, index.call_capacity, batch, 120)]}
+    finally:
+        settings.growth_migration_enabled = enabled
+
+
+def write_details(path, details):
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(details, indent=1, default=str))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", type=Path, default=None,
@@ -2020,6 +2842,8 @@ def main(argv=None) -> int:
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     details = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__}
+    # written when the process ends, so a failed run keeps what it measured
+    atexit.register(write_details, opts.details, details)
 
     t0 = time.perf_counter()
     build.load()
@@ -2128,6 +2952,50 @@ def main(argv=None) -> int:
         f"{writes['launches']}")
     log("gate (real, fixtures, on the card): " + ", ".join(
         f"{k} {serve['gate'][k]:.4f} (floor {floor})" for k, floor in GATE_FLOORS.items()))
+    life = serve["lifecycle"]
+    if min(life["launches"].values()) <= 0:
+        raise RuntimeError(
+            f"the lifecycle phase did not launch K1 and K3: {life['launches']}")
+    rr, ck, gm = life["rerank"], life["checkpoint"], life["growth_migration"]
+    log(f"lifecycle rerank ({smi}): real gate with rerank_provider=lexical "
+        + ", ".join(f"{k} {serve['gate_reranked'][k]:.4f} (floor {floor})"
+                    for k, floor in GATE_FLOORS.items())
+        + f"; (b) packs over HTTP, 128 concurrent, RERANK_ENABLED: p50 "
+        f"{rr['reranked']['p50_ms']:.1f} ms {rr['reranked']['qps']:.0f} QPS, the "
+        f"engine's rerank_ms {rr['rerank_ms']:.2f} a request (top "
+        f"{rr['reranked_from']:.0f} rescored); the unreranked rounds of the same "
+        f"run p50 {rr['plain']['p50_ms']:.1f} ms {rr['plain']['qps']:.0f} QPS")
+    sv = ck["saves"]
+    log(f"lifecycle checkpoint ({smi}): save_index of the served index "
+        f"({ck['rows']}) under 128 concurrent /retrieve: "
+        + "; ".join(
+            f"{name} {sv[name]['bytes'] / 1e9:.2f} GB, pinned buffers allocated in "
+            f"{sv[name]['pinned_alloc_s']:.2f} s, corpus locks held "
+            f"{sv[name]['lock_s']:.3f} s, call returned after "
+            f"{sv[name]['call_returned_s']:.2f} s, on disk after "
+            f"{sv[name]['to_disk_s']:.2f} s (files {sv[name]['write_s']:.2f} s), "
+            f"requests p50 {sv[name]['traffic']['p50_ms']:.1f} ms longest "
+            f"{sv[name]['traffic']['max_ms']:.1f} ms" for name in ("blocking", "background"))
+        + f"; a fresh DeviceIndexManager restored in {ck['restore_s']:.2f} s, serving "
+        f"(first planned batch answered, every known row first) after "
+        f"{ck['to_serving_s']:.2f} s (the vocab line below has startup's rebuild from "
+        f"a store in this run); device arrays, mirrors and stats equal to the served index's; K1 and K3 on "
+        f"the restored tensors |err| "
+        f"{max(r['max_abs_err'] for r in ck['kernels']):.3g}")
+    gib = lambda b: b / 2**30
+    log(f"lifecycle growth, background migration ({smi}), served index under 128 "
+        f"concurrent /retrieve: planner (free {gib(gm['free_bytes']):.1f} GiB by "
+        f"torch.cuda.mem_get_info) chose {gm['planned']} from {gm['old_capacity']}; "
+        f"migration ready {gm['ready_s']:.3f} s after the trigger (allocation and "
+        f"tail fill {gm['alloc_fill_s'] * 1e3:.1f} ms, copy {gm['copy_s'] * 1e3:.1f} "
+        f"ms, off the lock); index.growth_swap {gm['swap_s'] * 1e3:.2f} ms under the "
+        f"lock (host mirrors {gm['mirrors_s'] * 1e3:.2f} ms of it); peak "
+        f"{gib(gm['peak_bytes']):.2f} GiB over {gib(gm['held_bytes']):.2f} GiB held; "
+        f"requests across it p50 {gm['traffic']['p50_ms']:.1f} ms longest "
+        f"{gm['traffic']['max_ms']:.1f} ms; {gm['known_first']} known rows first; K1 "
+        f"and K3 on the {gm['kernels'][0]['rows']}-row tensors |err| "
+        f"{gm['kernels'][0]['max_abs_err']:.3g}; launches {life['launches']}")
+
     details["served_shapes"] = check_served_shapes(
         device, serve["dispatched"], serve["corpora"], seed=20)
     # the writes phase's shapes at the compacted, ragged row counts
@@ -2154,6 +3022,42 @@ def main(argv=None) -> int:
         f"artifacts served a batch of {details['int8']['batch']} through the engine "
         f"(planned ann, first batch {details['int8']['first_batch_ms']:.1f} ms): "
         f"every known row first; launches {int8_launches}")
+
+    details["vocab"] = vocab = run_vocab(device, *VOCAB_DOCS, VOCAB_HEAD, N_KNOWN, 128)
+    log(f"lifecycle vocab ({smi}): build_and_apply over a store of "
+        f"{vocab['documents']} documents of real text (windows of consecutive lines "
+        f"of this checkout's Markdown and Python sources), head {vocab['head']}: "
+        f"vocab.learn {vocab['learn_s']:.1f} s, vocab.apply {vocab['apply_s']:.1f} s, "
+        f"{vocab['rows_rescattered']} rows re-scattered; every known document first; "
+        f"K1 on the re-scattered lex tensor |err| {vocab['kernels']['max_abs_err']:.3g}; "
+        f"restart from a checkpoint (activate_from_store, startup's digest check, "
+        f"rows bit-equal) {vocab['restart_from_checkpoint_s']:.1f} s; restart without "
+        f"one (startup rebuilds {vocab['documents']} rows from the store, the same "
+        f"signatures) {vocab['rebuild_from_store_s']:.1f} s, "
+        f"{vocab['documents'] / vocab['rebuild_from_store_s']:.0f} rows/s")
+    details["cold_tier"] = cold = run_cold_tier(
+        device, index, batches, COLD_HOT_ROWS, N_KNOWN, 128)
+    cb = cold["batches"]
+    log(f"lifecycle cold tier ({smi}): INDEX_MAX_DEVICE_ROWS={cold['hot_rows']}, "
+        f"{cold['cold_rows']} rows in {cold['pinned_bytes'] / 1e9:.2f} GB of pinned "
+        f"host memory (allocated in {cold['pinned_alloc_s']:.2f} s, filled in "
+        f"{cold['install_s']:.2f} s), {cold['blocks']} blocks of up to "
+        f"{cold['block_rows']}; "
+        + "; ".join(
+            f"{name} {tuple(cb[name]['modes'])} batch of 128 "
+            f"{np.median(cb[name]['batch_ms']):.1f} ms (all-hot "
+            f"{np.median(cb[name]['all_hot_batch_ms']):.1f} ms), "
+            f"{cb[name]['bytes_shipped'] / 1e9:.2f} GB shipped at "
+            f"{cb[name]['h2d_gbs']:.1f} GB/s, lane positions with another id than "
+            f"the uncapped index's {cb[name]['ids_moved']} (largest score "
+            f"difference {cb[name]['max_score_diff']:.3g})" for name in cb)
+        + f"; a bare pinned copy_ of one block {cold['bare_copy_gbs']:.1f} GB/s, so "
+        f"the bound of an unscoped batch is {cold['bound_ms']:.1f} ms; every known "
+        f"row (all in the cold tier) first, through the engine too; {cold['deleted']} "
+        f"cold rows deleted and {cold['backfilled']} backfilled; K1 and K3 on a "
+        f"block's own tensors |err| "
+        f"{max(r['max_abs_err'] for r in cold['kernels']):.3g} at "
+        f"{[r['rows'] for r in cold['kernels']]} rows; launches {cold['launches']}")
 
     details["k2"] = check_k2(device, 1_048_576, 128, 1024, "contiguous", seed=4, reps=5)
     details["k2_random"] = check_k2(device, 1_048_576, 128, 1024, "random",
@@ -2202,23 +3106,45 @@ def main(argv=None) -> int:
         f"{np.median(ivf['warm_batch_ms']):.1f} ms; every known row first "
         f"(fused and dense); launches {ivf_launches}")
 
+    details["growth_sync"] = gs = run_sync_growth(device, index, batches, 128)
+    sp = gs["split"]
+    log(f"lifecycle growth, GROWTH_MIGRATION_ENABLED=0 ({smi}), the index-API phase's "
+        f"index under a thread serving its unscoped batch of 128: index.grow "
+        f"{gs['old_capacity']} -> {gs['capacity']} {gs['grow_s'] * 1e3:.1f} ms under "
+        f"the lock; the same steps one by one on arrays of these shapes: allocation "
+        f"{sp['allocation_s'] * 1e3:.1f} ms, fill {sp['fill_s'] * 1e3:.1f} ms, copy "
+        f"{sp['copy_s'] * 1e3:.1f} ms, host mirrors {sp['host_mirrors_s'] * 1e3:.2f} "
+        f"ms; peak {gib(gs['peak_bytes']):.2f} GiB over {gib(gs['held_bytes']):.2f} "
+        f"GiB held; batches p50 {gs['batch_p50_ms']:.1f} ms, longest across the "
+        f"growth {gs['longest_batch_ms']:.1f} ms; every known row first; K1 and K3 "
+        f"on the {gs['kernels'][0]['rows']}-row tensors |err| "
+        f"{gs['kernels'][0]['max_abs_err']:.3g}")
+    k1_err = max(k1_err, vocab["kernels"]["max_abs_err"], gs["kernels"][0]["max_abs_err"],
+                 *(r["max_abs_err"] for r in ck["kernels"] + cold["kernels"] + gm["kernels"]))
+    lifecycle_launches = {name: life["launches"][name] + cold["launches"][name]
+                          for name in ("fused_scan", "tech_topk")}
+
     k1, k3, k2 = details["k1"], details["k3"], details["k2"]
     kernels = [
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
-         "launches": serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"],
+         "launches": (serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"]
+                      + lifecycle_launches["fused_scan"]),
          "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
-                               "writes": writes["launches"]["fused_scan"]},
+                               "writes": writes["launches"]["fused_scan"],
+                               "lifecycle": lifecycle_launches["fused_scan"]},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "tech_topk", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
-         "launches": serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"],
+         "launches": (serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"]
+                      + lifecycle_launches["tech_topk"]),
          "launches_by_phase": {"serve": serve["launches"]["tech_topk"],
-                               "writes": writes["launches"]["tech_topk"]},
+                               "writes": writes["launches"]["tech_topk"],
+                               "lifecycle": lifecycle_launches["tech_topk"]},
          "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
@@ -2229,9 +3155,6 @@ def main(argv=None) -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]
-    if opts.details is not None:
-        opts.details.parent.mkdir(parents=True, exist_ok=True)
-        opts.details.write_text(json.dumps(details, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -256,7 +256,14 @@ VERBATIM = [
     "utils/timeutil.py", "utils/errors.py", "utils/locks.py", "logging_utils.py",
     "evals/metrics.py", "evals/fixtures.py", "serve/metrics.py",
     "ingest/adapters.py", "ingest/docformats.py", "scripts/__init__.py",
+    "evals/data/gold_sample.jsonl", "evals/data/results_sample.jsonl",
 ]
+# copies that differ from the JAX package's file only where a line names the
+# package (a usage line) or the hardware: {path: lines that may differ}
+NEARLY_VERBATIM = {
+    "core/vocab.py": 1, "evals/gate.py": 1, "evals/run_eval.py": 1,
+    "evals/lexical_fidelity.py": 1,
+}
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -265,6 +272,20 @@ def test_verbatim_copies(path):
     """Modules the port copies unchanged: the same text."""
     port = (REPO / "cadence_rag_tpu_torch" / path).read_text()
     assert port == (REPO / "cadence_rag_tpu" / path).read_text()
+
+
+@pytest.mark.parametrize("path", sorted(NEARLY_VERBATIM))
+def test_nearly_verbatim_copies(path):
+    """Host modules copied with one line reworded and nothing else changed:
+    the same number of lines, and the lines that differ mention neither
+    package by mistake (the port's names its own)."""
+    port = (REPO / "cadence_rag_tpu_torch" / path).read_text().splitlines()
+    orig = (REPO / "cadence_rag_tpu" / path).read_text().splitlines()
+    assert len(port) == len(orig)
+    differ = [(a, b) for a, b in zip(orig, port) if a != b]
+    assert 1 <= len(differ) <= NEARLY_VERBATIM[path]
+    for _a, b in differ:
+        assert "cadence_rag_tpu." not in b and "TPU" not in b
 
 
 def test_fs_queue_is_the_original_but_for_one_docstring_line():
@@ -351,8 +372,12 @@ def test_featurize_single_text_api_matches():
         assert a[1] == b[1]
     assert tfeaturize.active_vocab() == (None, 0) == jfeaturize.active_vocab()
     tfeaturize.set_active_vocab(None, 0)
-    with pytest.raises(NotImplementedError, match="vocab"):
-        tfeaturize.set_active_vocab(np.arange(1, 5, dtype=np.uint64), 1)
+    # a vocab head is taken now (tests/test_torch_vocab.py holds its bits)
+    tfeaturize.set_active_vocab(np.arange(1, 5, dtype=np.uint64), 1)
+    try:
+        assert tfeaturize.active_vocab()[1] == 1
+    finally:
+        tfeaturize.set_active_vocab(None, 0)
 
 
 @pytest.mark.parametrize("cache", [0, 64])

@@ -17,9 +17,7 @@ Then the job routes over the port's router client against the JAX
 package's.
 """
 
-import re
 import sys
-import types
 from pathlib import Path
 
 import pytest
@@ -28,11 +26,11 @@ from torch_parity import (
     BOTH,
     JAX,
     PORT,
+    mirror_tests,
     port_store,  # noqa: F401  (fixture)
     set_both,  # noqa: F401  (fixture)
 )
 
-TESTS = Path(__file__).resolve().parent
 MIRRORED = {
     "fs_queue": "integration/test_fs_queue.py",
     "adapters": "unit/test_adapters.py",
@@ -40,8 +38,8 @@ MIRRORED = {
     "ocr_sidecar": "integration/test_ocr_sidecar.py",
     "cli_scripts": "integration/test_cli_scripts.py",
 }
-# tests of modules the port does not have yet (scripts/index_snapshot.py and
-# core/checkpoint.py come with the checkpoints)
+# the port's index_snapshot takes --device (default cuda, which raises
+# without a card): its round trip is held in tests/test_torch_checkpoint.py
 NOT_PORTED = {"cli_scripts": {"TestCliScripts": ["test_snapshot_cli_roundtrip"]}}
 
 
@@ -52,46 +50,8 @@ def port_tmp_store(port_store):
     return port_store
 
 
-def _is_fixture(obj) -> bool:
-    return (type(obj).__name__ == "FixtureFunctionDefinition"
-            or getattr(obj, "_pytestfixturefunction", None) is not None)
-
-
-def _mirror(stem: str, rel: str) -> None:
-    """Compile the JAX package's test file against the port and bind its
-    tests (prefixed) and fixtures into this module."""
-    source = (TESTS / rel).read_text()
-    assert "cadence_rag_tpu_torch" not in source
-    # the package's name is rewritten where it names a module (an import
-    # line, a dotted path in a string) and the fixture's where it stands as
-    # a whole word; any other mention fails here instead of passing rewritten
-    source = re.sub(r"^(\s*(?:from|import)\s+)cadence_rag_tpu\b",
-                    r"\1cadence_rag_tpu_torch", source, flags=re.M)
-    source = re.sub(r"([\"'])cadence_rag_tpu\.", r"\1cadence_rag_tpu_torch.", source)
-    assert not re.search(r"cadence_rag_tpu(?!_torch\b)", source), rel
-    source = re.sub(r"\btmp_store\b", "port_tmp_store", source)
-    module = types.ModuleType(f"{__name__}.{stem}")
-    module.__file__ = str(TESTS / rel)
-    sys.modules[module.__name__] = module
-    exec(compile(source, module.__file__, "exec"), module.__dict__)
-    for cls, methods in NOT_PORTED.get(stem, {}).items():
-        for method in methods:
-            delattr(vars(module)[cls], method)
-    here = globals()
-    for name, obj in list(vars(module).items()):
-        if getattr(obj, "__module__", None) != module.__name__ and not _is_fixture(obj):
-            continue
-        if name.startswith("Test") and isinstance(obj, type):
-            here[f"Test_{stem}_{name[4:]}"] = obj
-        elif name.startswith("test_") and callable(obj):
-            here[f"test_{stem}_{name[5:]}"] = obj
-        elif _is_fixture(obj):
-            assert name not in here or here[name] is obj, name
-            here[name] = obj
-
-
 for _stem, _rel in MIRRORED.items():
-    _mirror(_stem, _rel)
+    mirror_tests(globals(), _stem, _rel, drop=NOT_PORTED.get(_stem))
 
 
 def test_every_mirrored_file_ran_against_the_port():

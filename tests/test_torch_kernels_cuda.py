@@ -450,3 +450,184 @@ def test_index_writes_card_matches_cpu(cuda, emb_dtype):
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert states[0][2:] == states[1][2:]
+
+
+# -- the index's lifecycle on the card ----------------------------------------------
+def _corpus_like(name, device, arrays, count):
+    """What ``chip_smoke.check_kernels_on_corpus`` reads of a corpus."""
+    import threading
+    import types
+
+    return types.SimpleNamespace(name=name, device=device, lock=threading.RLock(),
+                                 count=count, device_arrays=lambda: arrays)
+
+
+def _synthetic_index(device, n_chunks, n_artifacts, dim=1024, lex_dim=4096):
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.evals.synth import install_synthetic_corpus
+
+    settings.embeddings_dim, settings.lexical_dim = dim, lex_dim
+    index = DeviceIndexManager(device)
+    index.ensure_call_capacity(1024)
+    install_synthetic_corpus(index.chunks, n_chunks, 1024, seed=0)
+    install_synthetic_corpus(index.artifacts, n_artifacts, 1024, seed=1)
+    return index
+
+
+@pytest.fixture()
+def full_width(monkeypatch):
+    from cadence_rag_tpu_torch.config import settings
+
+    for name in ("embeddings_dim", "lexical_dim", "index_max_device_rows",
+                 "cold_block_rows", "index_embedding_dtype", "index_initial_capacity"):
+        monkeypatch.setattr(settings, name, getattr(settings, name))
+    return settings
+
+
+@pytest.mark.parametrize("rows", [262_144, 213_584])
+def test_k1_k3_on_a_pinned_block_copied_in(cuda, full_width, rows):
+    """A cold block's rows in pinned host memory, copied to the device
+    without blocking as ``ColdTier.dispatch`` does: K1 (both lanes) and K3
+    against their plain versions at the block's shape, full and ragged."""
+    import chip_smoke
+
+    from cadence_rag_tpu_torch.core.coldtier import ColdTier
+
+    index = _synthetic_index(cuda, rows, 1024)
+    tier = ColdTier(dim=1024, lex_dim=4096, tech_slots=16, emb_dtype=torch.bfloat16,
+                    device=cuda)
+    tier._alloc(rows)
+    for dst, src in zip(tier.row_arrays(), index.chunks.device_arrays()):
+        assert dst.is_pinned()
+        dst[:rows].copy_(src[:rows])
+    tier.count = rows
+    staged = tuple(s[:rows] for s in tier._staging_for(rows))
+    for dst, src in zip(staged, tier.row_arrays()):
+        dst.copy_(src[:rows], non_blocking=True)
+    before = (k1.fused_scan.launches, k3.range_topk.launches)
+    out = chip_smoke.check_kernels_on_corpus(
+        _corpus_like("block", cuda, staged, rows), 1024, 128, seed=5)
+    assert out["rows"] == rows and out["max_abs_err"] < 1e-3
+    assert k1.fused_scan.launches > before[0] and k3.range_topk.launches > before[1]
+
+
+def test_k1_k3_on_2m_row_tensors(cuda, full_width):
+    """The doubled capacity: 2,097,152-row tensors, 1,048,916 rows live."""
+    import chip_smoke
+
+    from cadence_rag_tpu_torch.evals.synth import append_synthetic_rows
+
+    index = _synthetic_index(cuda, 1_048_000, 1024)
+    rows = chip_smoke.synthetic_doc_rows(1024, 70_000_000, 1, 1024, 4096, 16)
+    index.chunks.insert(rows)
+    assert index.chunks.capacity == 2_097_152
+    append_synthetic_rows(index.chunks, 1000, 1024, seed=2)
+    out = chip_smoke.check_kernels_on_corpus(index.chunks, 1024, 128, seed=6)
+    assert out["rows"] == 2_097_152 and out["max_abs_err"] < 1e-3
+
+
+@pytest.mark.parametrize("emb_dtype", ["bfloat16", "int8"])
+def test_checkpoint_card_to_cpu_and_back(cuda, full_width, tmp_path, emb_dtype):
+    """A checkpoint saved from the card restores on the CPU and one saved
+    from the CPU restores on the card, rows bit-equal; K1 and K3 hold on
+    the restored tensors."""
+    import chip_smoke
+
+    from cadence_rag_tpu_torch.core.checkpoint import restore_index, save_index
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+
+    full_width.index_embedding_dtype = emb_dtype
+    on_card = _synthetic_index(cuda, 20_000, 3000, dim=256, lex_dim=512)
+    on_card.chunks.delete_ids(list(range(100, 600)))
+    save_index(str(tmp_path / "card"), on_card)
+    on_cpu = DeviceIndexManager("cpu")
+    restore_index(str(tmp_path / "card"), on_cpu)
+    save_index(str(tmp_path / "cpu"), on_cpu)
+    back = DeviceIndexManager(cuda)
+    restore_index(str(tmp_path / "cpu"), back)
+    for name in ("chunks", "artifact_chunks"):
+        a, b, c = on_card.corpus(name), on_cpu.corpus(name), back.corpus(name)
+        assert chip_smoke.same_corpus_state(c, a) is None
+        n = a.count
+        for x, y in zip(a.device_arrays(), b.device_arrays()):
+            assert torch.equal(x[:n].cpu(), y[:n])
+        assert b.tombstones == a.tombstones and b._id_to_pos == a._id_to_pos
+    out = chip_smoke.check_kernels_on_corpus(back.chunks, 1024, 64, seed=7)
+    assert out["live"] == 19_500 and out["max_abs_err"] < 1e-3
+
+
+@pytest.mark.parametrize("modes", [("ann", "ann"), ("exact", "exact")])
+def test_capped_index_answers_as_the_uncapped_on_the_card(cuda, full_width, modes):
+    """Blocks streamed from pinned memory through K1 and K3: every lane of
+    the capped index carries the uncapped index's ids and scores."""
+    import chip_smoke
+
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.evals.synth import install_capped_copy
+
+    full, texts, tokens = chip_smoke.build_index(cuda, 40_000, 4000, 8)
+    full_width.index_max_device_rows = 16_384
+    full_width.cold_block_rows = 8192
+    capped = DeviceIndexManager(cuda)
+    capped.ensure_call_capacity(1024)
+    install_capped_copy(full.chunks, capped.chunks)
+    full_width.index_max_device_rows = 0
+    capped.artifacts.load_state(full.artifacts.state_arrays())
+    assert capped.chunks.cold.count == 40_008 - 16_384
+    args, _planned, expected = chip_smoke.plan_batch(full, texts, tokens, 64,
+                                                    scoped=modes[0] == "exact")
+    kw = dict(chunk_ks=chip_smoke.CHUNK_KS, artifact_ks=chip_smoke.ARTIFACT_KS,
+              chunk_mode=modes[0], artifact_mode=modes[1], recall_target=0.95)
+    before = (k1.fused_scan.launches, k3.range_topk.launches)
+    want = full.collect_packed(full.query_both_packed_async(*args, **kw))
+    got = capped.collect_packed(capped.query_both_packed_async(*args, **kw))
+    assert k1.fused_scan.launches >= before[0] + 2 + 3 + 2
+    moved, apart, worst = chip_smoke.lanes_differ(got, want)
+    assert apart == 0 and worst <= 1e-5
+    chip_smoke.check_first_lanes(got, expected, "capped")
+    # a writer after the dispatch: the blocks in flight are not disturbed
+    disp = capped.query_both_packed_async(*args, **kw)
+    cold_ids = [int(i) for i in capped.chunks.cold.ids[:4000]]
+    capped.chunks.set_tech(cold_ids, np.zeros((4000, 16), np.int32))
+    capped.chunks.delete_ids(cold_ids)
+    capped.chunks.maybe_compact()
+    again = capped.collect_packed(disp)
+    assert chip_smoke.lanes_differ(again, got)[:2] == (0, 0)
+
+
+def test_growth_migration_on_the_card(cuda, full_width):
+    """The side-stream copy, the journal's replay and the swap on the card:
+    a corpus that migrates while it is written ends bit-equal to a twin that
+    grew synchronously."""
+    import chip_smoke
+
+    from cadence_rag_tpu_torch.core.index import CorpusIndex
+
+    kw = dict(dim=256, lex_dim=512, tech_slots=16, capacity=65_536, device=cuda)
+    mig_c, sync_c = CorpusIndex("chunks", **kw), CorpusIndex("chunks", **kw)
+    first = chip_smoke.synthetic_doc_rows(60_000, 1, 3, 256, 512, 16)
+    for c in (mig_c, sync_c):
+        c.insert(first)
+    assert mig_c.start_migration(131_072)
+    rng = np.random.default_rng(4)
+    for step in range(60):                 # writes while the copy runs and after
+        # distinct ids: a scatter that names a row twice may keep either
+        # value on the card, live and in the replay alike
+        ids = [int(i) for i in rng.choice(np.arange(1, 60_001), size=64, replace=False)]
+        vecs = rng.standard_normal((64, 256)).astype(np.float32)
+        tech = rng.integers(1, 99, (64, 16)).astype(np.int32)
+        lex = rng.integers(-3, 4, (64, 512)).astype(np.int8)
+        for c in (mig_c, sync_c):
+            c.set_embeddings(ids, vecs)
+            c.set_tech(ids, tech)
+            c.set_lex(ids, lex)
+            c.delete_ids(ids[:2])
+            c.insert(chip_smoke.synthetic_doc_rows(8, 100_000 + 8 * step, step, 256, 512, 16))
+    assert mig_c._migration.ready.wait(120)
+    late = chip_smoke.synthetic_doc_rows(8192, 200_000, 5, 256, 512, 16)
+    for c in (mig_c, sync_c):
+        c.insert(late)
+    assert mig_c.capacity == sync_c.capacity == 131_072 and mig_c._migration is None
+    torch.cuda.synchronize()
+    assert chip_smoke.same_corpus_state(mig_c, sync_c) is None

@@ -13,7 +13,12 @@ every module imports, the in-process client serves the fixture corpus, and
 chip_smoke.py's serve phase runs over a localhost socket at a tiny size,
 its ``writes`` phase included (the scanner and the worker as child processes
 that block jax too, the syncer, deletes over HTTP, a compaction under
-traffic), then the int8 batch.
+traffic), and its ``lifecycle`` phase (the rerank lane, a checkpoint saved
+under traffic and restored, the growth through the background migration),
+then the int8 batch and the lifecycle steps that bring their own stores: the
+vocab head over documents of the checkout's own text, the capped index
+against the uncapped one, the synchronous growth. ``ml_dtypes`` is blocked
+as well: the checkpoint's bf16 rows must not need it.
 """
 
 import json
@@ -27,7 +32,7 @@ REPO = Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
 HTTP_STACK = ("pydantic", "aiohttp", "httpx")
-BLOCKED = ("jax", "jaxlib", "cadence_rag_tpu") + HTTP_STACK
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "cadence_rag_tpu") + HTTP_STACK
 for name in BLOCKED:
     sys.modules[name] = None
 
@@ -99,10 +104,18 @@ def test_port_runs_without_jax_pydantic_http():
         "cadence_rag_tpu_torch.native.hnsw",
         "cadence_rag_tpu_torch.native.lexhash",
         "cadence_rag_tpu_torch.ingest.docformats",
+        "cadence_rag_tpu_torch.core.checkpoint",
+        "cadence_rag_tpu_torch.core.coldtier",
+        "cadence_rag_tpu_torch.core.prewarm",
+        "cadence_rag_tpu_torch.evals.coldtier_bench",
+        "cadence_rag_tpu_torch.evals.lexical_fidelity",
+        "cadence_rag_tpu_torch.evals.gate",
+        "cadence_rag_tpu_torch.evals.run_eval",
     }
     assert expected <= set(out["modules"])
     # only the request path's modules need the HTTP stack
     http_side = ("schemas", "serve", "engine.retrieve", "engine.filters",
+                 "engine.rerank", "core.vocab",
                  "ingest.chunking", "ingest.ingest", "embed.client", "embed.pipeline",
                  "ingest.adapters", "ingest.fs_queue", "ingest.sync", "scripts")
     assert out["need_http"] and all(
@@ -133,7 +146,7 @@ def test_cuda_request_without_card_raises():
 
 SERVE_SCRIPT = r"""
 import importlib, json, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "cadence_rag_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "cadence_rag_tpu")
 for name in BLOCKED:
     sys.modules[name] = None
 
@@ -151,6 +164,8 @@ settings.lexical_dim = 1024
 settings.index_initial_capacity = 256
 settings.store_sync_interval_s = 0.0
 settings.embeddings_provider = "stub"
+settings.prewarm_min_capacity = 256      # the growth trigger, at this size
+settings.cold_block_rows = 1024
 settings.store_path = tempfile.mkdtemp() + "/store.db"
 
 from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
@@ -165,9 +180,15 @@ resp = client.post("/retrieve", json={"query": "what caused the ECONNRESET error
 import chip_smoke
 serve = chip_smoke.run_serve("cpu", 5000, 600, concurrency=16, cold_rounds=1,
                              warm_rounds=1, bench_iters=1, profile=False,
-                             window_ms=50, write_rounds=30)
+                             window_ms=50, write_rounds=30, lifecycle_rounds=2)
 writes = serve["writes"]
+life = serve["lifecycle"]
 int8 = chip_smoke.run_int8_served("cpu", 3000, 300, 8, 4)
+vocab = chip_smoke.run_vocab("cpu", 3000, 300, 256, 8, 16)
+full, batches, _summary = chip_smoke.run_main_path(
+    "cpu", n_chunks=5000, n_artifacts=600, batch=16, n_known=4)
+cold = chip_smoke.run_cold_tier("cpu", full, batches, 2048, 4, 16)
+grown = chip_smoke.run_sync_growth("cpu", full, batches, 16)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 print(json.dumps({"modules": len(modules), "loaded": loaded,
@@ -184,7 +205,23 @@ print(json.dumps({"modules": len(modules), "loaded": loaded,
                   "known_after": writes["compaction"]["known_first"],
                   "on_index": [r["rows"] for r in writes["kernels_tombstoned"]
                                + writes["kernels_compacted"]],
-                  "int8": int8["known_first"]}))
+                  "int8": int8["known_first"],
+                  "gate_reranked": serve["gate_reranked"],
+                  "reranked_from": life["rerank"]["reranked_from"],
+                  "saves": sorted((k, v["generation"])
+                                  for k, v in life["checkpoint"]["saves"].items()),
+                  "restored": life["checkpoint"]["rows"],
+                  "restored_known": life["checkpoint"]["known_first"],
+                  "migrated": [life["growth_migration"][k] for k in
+                               ("old_capacity", "planned", "capacity", "known_first")],
+                  "vocab": [vocab[k] for k in ("documents", "head", "version",
+                                               "rows_rescattered", "known_first")],
+                  "cold": [cold[k] for k in ("hot_rows", "cold_rows", "blocks",
+                                             "deleted", "backfilled", "known_first")],
+                  "cold_moved": [cold["batches"][n]["ids_moved"]
+                                 for n in ("unscoped", "scoped")],
+                  "cold_blocks": [r["rows"] for r in cold["kernels"]],
+                  "grown": [grown["old_capacity"], grown["capacity"]]}))
 """
 
 
@@ -216,3 +253,21 @@ def test_port_serves_without_jax():
     assert out["known_after"] == 28
     assert out["on_index"] == [8192, 1024, 4096, 512]
     assert out["int8"] == 8
+    # the lifecycle phase: the reranked gate over its floors, every answer
+    # reranked; two saves, the second generation restored with every known
+    # row first; the growth through the migration, on the planned capacity
+    assert out["gate_reranked"]["mrr"] >= 0.60
+    assert out["gate_reranked"]["recall@20"] >= 0.80
+    assert out["reranked_from"] >= 1
+    assert out["saves"] == [["background", 1], ["blocking", 0]]
+    assert out["restored"] == {"chunks": out["count_after"]["chunks"],
+                               "artifact_chunks": out["count_after"]["artifact_chunks"]}
+    assert out["restored_known"] == 28
+    assert out["migrated"] == [4096, 8192, 8192, 44]
+    # its steps on their own stores: the vocab head over 3,300 documents of
+    # the checkout's own text; the capped index against the uncapped one
+    # (three cold blocks, the tail ragged); the synchronous growth
+    assert out["vocab"] == [3300, 256, 1, 3300, 8]
+    assert out["cold"] == [2048, 2956, 3, 65, 8, 3]
+    assert out["cold_moved"] == [0, 0] and out["cold_blocks"] == [1024, 908]
+    assert out["grown"] == [8192, 16384]

@@ -13,6 +13,7 @@ import asyncio
 import sqlite3
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,14 +37,17 @@ NOT_PORTED = [
     ("GET", "/ingest/jobs/00000000-0000-4000-8000-000000000001"),
     ("DELETE", "/calls/00000000-0000-4000-8000-000000000001"),
 ]
+# (settings, a word of the message, the ROADMAP item it names)
 UNPORTED_SETTINGS = [
-    ("lex_vocab_auto_rebuild", True, "LEX_VOCAB_AUTO_REBUILD"),
-    ("rerank_enabled", True, "RERANK_ENABLED"),
-    ("dist_coordinator", "localhost:1234", "DIST_COORDINATOR"),
-    ("mesh_shape", "data:4", "MESH_SHAPE"),
-    ("profiler_port", 9999, "PROFILER_PORT"),
-    ("embeddings_provider", "neural", "EMBEDDINGS_PROVIDER"),
-    ("embeddings_provider", "qwen3", "EMBEDDINGS_PROVIDER"),
+    ({"rerank_enabled": True, "rerank_provider": "neural"},
+     "RERANK_PROVIDER=neural", "item 6"),
+    ({"rerank_enabled": True, "rerank_provider": "neural_raw"},
+     "RERANK_PROVIDER=neural_raw", "item 6"),
+    ({"dist_coordinator": "localhost:1234"}, "DIST_COORDINATOR", "item 7"),
+    ({"mesh_shape": "data:4"}, "MESH_SHAPE", "item 7"),
+    ({"profiler_port": 9999}, "PROFILER_PORT", "item 2"),
+    ({"embeddings_provider": "neural"}, "EMBEDDINGS_PROVIDER", "item 6"),
+    ({"embeddings_provider": "qwen3"}, "EMBEDDINGS_PROVIDER", "item 6"),
 ]
 
 
@@ -192,26 +196,62 @@ def test_unported_routes_say_so(clients, method, path):
     assert "not ported" not in str(port.json())
 
 
-@pytest.mark.parametrize("name,value,word", UNPORTED_SETTINGS)
-def test_startup_raises_for_unported_settings(port_store, monkeypatch, name, value, word):
+@pytest.mark.parametrize("values,word,item", UNPORTED_SETTINGS)
+def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, word, item):
     from cadence_rag_tpu_torch.serve.api import startup
 
     monkeypatch.setattr(PORT.settings, "store_sync_interval_s", 0.0)
-    monkeypatch.setattr(PORT.settings, name, value)
-    with pytest.raises(RuntimeError, match=word):
+    for name, value in values.items():
+        monkeypatch.setattr(PORT.settings, name, value)
+    with pytest.raises(RuntimeError, match=f"{word}.*ROADMAP Queue 1 {item}"):
         startup("cpu")
 
 
 def test_startup_raises_for_a_store_with_a_vocab_head(port_store, monkeypatch):
+    """A store with an applied vocab head starts now (startup activates it
+    before it rebuilds the index); startup raises only for a head it cannot
+    serve: one built for another LEXICAL_DIM, or one whose apply never
+    finished."""
+    from cadence_rag_tpu_torch.core import vocab
+    from cadence_rag_tpu_torch.ingest import featurize
     from cadence_rag_tpu_torch.serve.api import startup
 
     monkeypatch.setattr(PORT.settings, "store_sync_interval_s", 0.0)
-    with PORT.db.get_store().tx() as conn:
+    store = PORT.db.get_store()
+    with store.tx() as conn:
         conn.execute("INSERT INTO lex_vocab (version, head, dim, created_at, "
                      "applied, hashes) VALUES (1, 4, 1024, 'now', 1, ?)",
-                     (sqlite3.Binary(b"\0" * 32),))
-    with pytest.raises(RuntimeError, match="vocab"):
+                     (sqlite3.Binary(np.arange(1, 5, dtype=np.uint64).tobytes()),))
+    startup("cpu")
+    assert featurize.active_vocab()[1] == 1 and featurize.active_vocab()[0].size == 4
+    PORT.index.reset_index()
+    monkeypatch.setattr(PORT.settings, "lexical_dim", 512)
+    with pytest.raises(RuntimeError, match="LEXICAL_DIM=1024"):
         startup("cpu")
+    monkeypatch.setattr(PORT.settings, "lexical_dim", 1024)
+    PORT.index.reset_index()
+    vocab.save_vocab(store, np.arange(1, 9, dtype=np.uint64), 1024)
+    with pytest.raises(RuntimeError, match="never completed"):
+        startup("cpu")
+
+
+def test_startup_serves_what_it_used_to_refuse(port_store, monkeypatch):
+    """``RERANK_ENABLED`` with the lexical provider, ``LEX_VOCAB_AUTO_REBUILD``
+    and ``INDEX_MAX_DEVICE_ROWS`` start and serve."""
+    from cadence_rag_tpu_torch.serve.api import startup
+
+    monkeypatch.setattr(PORT.settings, "store_sync_interval_s", 0.0)
+    for name, value in (("rerank_enabled", True), ("lex_vocab_auto_rebuild", True),
+                        ("index_max_device_rows", 1), ("cold_block_rows", 8)):
+        monkeypatch.setattr(PORT.settings, name, value)
+    PORT.index.reset_index()
+    client = PORT.testing.TestClient(device="cpu")
+    assert client.post("/ingest/transcript",
+                       json=_transcript(TEXTS, "served")).status_code == 200
+    resp = client.post("/retrieve", json={"query": "ECONNRESET object store"}).json()
+    assert resp["quotes"] and resp["notes"]["retrieval"]["reranked_from"] >= 1
+    stats = client.get("/index/stats").json()["chunks"]
+    assert stats["count"] == 1 and stats["cold_tier"]["count"] >= 1
 
 
 def test_entry_points_default_to_the_card(port_store, monkeypatch):

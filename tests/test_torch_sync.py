@@ -25,6 +25,7 @@ import pytest
 from torch_parity import (
     JAX,
     PORT,
+    ingest_corpus,
     port_store,  # noqa: F401  (fixture)
     set_both,  # noqa: F401  (fixture)
 )
@@ -361,21 +362,42 @@ class TestSyncRobustness:
 
 
 def test_syncer_refuses_a_store_with_a_vocab_head(port_store):
-    """The stand-in for ``core/vocab.adopt_store_layout``: a poll against a
-    store whose lexical vocab another process applied raises; the stand-in
-    for ``auto_rebuild_if_needed`` does nothing while the setting is off."""
-    import sqlite3
-
+    """What the syncer's poll does about a store whose lexical vocab another
+    process built (``core/vocab.adopt_store_layout``, which replaced the
+    stand-in that refused every such store): an applied head is adopted —
+    activated, and every live row's signature refreshed from the store's
+    blobs — and only a head whose apply never finished is refused. The
+    auto-rebuild does nothing while its setting is off."""
+    from cadence_rag_tpu_torch.core import vocab
     from cadence_rag_tpu_torch.ingest import featurize
 
+    ingest_corpus(PORT)
+    index, store = PORT.index.get_index(), PORT.db.get_store()
     syncer = PORT.sync.get_syncer()
+    syncer.init_watermark()
     assert syncer.poll_once() == {}
-    featurize.auto_rebuild_if_needed(PORT.db.get_store(), PORT.index.get_index())
-    with PORT.db.get_store().tx() as conn:
-        conn.execute("INSERT INTO lex_vocab (version, head, dim, created_at, "
-                     "applied, hashes) VALUES (1, 4, 1024, 'now', 1, ?)",
-                     (sqlite3.Binary(b"\0" * 32),))
-    with pytest.raises(RuntimeError, match="vocab"):
+    assert vocab.auto_rebuild_if_needed(store, index) is None
+    before = index.chunks.state_arrays()["lex"]
+    # another process (its own index, its own featurizer registry) applies
+    # a head to the shared store; this process's registry is put back
+    other = PORT.index.DeviceIndexManager("cpu")
+    vocab.build_and_apply(store, other, head=48)
+    applied = featurize.active_vocab()[0].copy()
+    featurize.set_active_vocab(None, 0)
+    syncer.poll_once()
+    assert featurize.active_vocab()[1] == 1
+    np.testing.assert_array_equal(featurize.active_vocab()[0], applied)
+    after = index.chunks.state_arrays()["lex"]
+    assert not np.array_equal(after, before)
+    with store.read() as conn:
+        blobs = {r["chunk_id"]: np.frombuffer(r["lex_sig"], np.int8) for r in
+                 conn.execute("SELECT chunk_id, lex_sig FROM chunks")}
+    for pos, doc_id in enumerate(index.chunks.h_ids[: index.chunks.count]):
+        np.testing.assert_array_equal(after[pos], blobs[int(doc_id)])
+    # an interrupted build leaves an unapplied row: refused, layout kept
+    vocab.save_vocab(store, np.arange(1, 9, dtype=np.uint64), 1024)
+    featurize.set_active_vocab(None, 0)
+    with pytest.raises(RuntimeError, match="never completed"):
         syncer.poll_once()
 
 

@@ -1,5 +1,7 @@
 """Shared set-up of the tests that hold the port's engine and server to the
-JAX package's (tests/test_torch_engine.py, tests/test_torch_serve.py).
+JAX package's (tests/test_torch_engine.py, tests/test_torch_serve.py), and
+``mirror_tests``, which compiles one of the JAX package's own test files
+against the port.
 
 Each package gets its own temporary SQLite store and its own index, with the
 same settings (conftest's ``tmp_store`` sizes: 64-d embeddings, 1024-wide
@@ -13,7 +15,11 @@ import copy
 import dataclasses
 import importlib
 import itertools
+import re
+import sys
+import types
 from datetime import datetime, timedelta, timezone
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,7 +44,10 @@ class Package:
             ("db", "store.db"), ("testing", "serve.testing"),
             ("real_gate", "evals.real_gate"), ("rrf", "native.rrf"),
             ("sync", "ingest.sync"), ("fs_queue", "ingest.fs_queue"),
-            ("errors", "utils.errors"),
+            ("errors", "utils.errors"), ("checkpoint", "core.checkpoint"),
+            ("vocab", "core.vocab"), ("featurize", "ingest.featurize"),
+            ("hashing", "ops.hashing"), ("rerank", "engine.rerank"),
+            ("api", "serve.api"),
         ):
             setattr(self, attr, importlib.import_module(f"{root}.{name}"))
         self.settings = importlib.import_module(f"{root}.config").settings
@@ -51,6 +60,68 @@ class Package:
         with self.db.get_store().read() as conn:
             rows = conn.execute("SELECT call_id, external_id FROM calls").fetchall()
         return {r["call_id"]: r["external_id"] for r in rows}
+
+
+TESTS = Path(__file__).resolve().parent
+# the port's index has no default device: where a mirrored test makes the
+# process-wide index anew, it asks for the CPU
+_CPU_INDEX = ('__import__("cadence_rag_tpu_torch.core.index", '
+              'fromlist=["get_index"]).get_index("cpu")')
+ON_CPU = (
+    (r"(?<!def )\breset_index\(\)", f"(reset_index(), {_CPU_INDEX})"),
+    (r"\bget_index\(\)", 'get_index("cpu")'),
+    (r"\brestore_index\(([^()]*(?:\([^()]*\))?[^()]*)\)",
+     r'restore_index(\1, get_index("cpu"))'),
+)
+
+
+def _is_fixture(obj) -> bool:
+    return (type(obj).__name__ == "FixtureFunctionDefinition"
+            or getattr(obj, "_pytestfixturefunction", None) is not None)
+
+
+def mirror_tests(into: dict, stem: str, rel: str, drop=None, rewrites=()):
+    """Compile one of the JAX package's own test files against the port and
+    bind its tests (prefixed with ``stem``) and fixtures into the test
+    module whose globals are ``into``. The package's name is rewritten where
+    it names a module (an import line, a dotted path in a string) and the
+    ``tmp_store`` fixture's where it stands as a whole word (it becomes
+    ``port_tmp_store``, which the test module defines); any other mention of
+    the package fails here instead of passing rewritten. ``rewrites`` are
+    further (pattern, replacement) pairs; ``drop`` maps a class name to the
+    test methods (or None to a list of module-level tests) that do not
+    apply to the port and are held by tests of the module's own instead.
+    -> the compiled module."""
+    source = (TESTS / rel).read_text()
+    assert "cadence_rag_tpu_torch" not in source
+    source = re.sub(r"^(\s*(?:from|import)\s+)cadence_rag_tpu\b",
+                    r"\1cadence_rag_tpu_torch", source, flags=re.M)
+    source = re.sub(r"([\"'])cadence_rag_tpu\.", r"\1cadence_rag_tpu_torch.", source)
+    assert not re.search(r"cadence_rag_tpu(?!_torch\b)", source), rel
+    source = re.sub(r"\btmp_store\b", "port_tmp_store", source)
+    for pattern, replacement in rewrites:
+        source = re.sub(pattern, replacement, source)
+    module = types.ModuleType(f"{into['__name__']}.{stem}")
+    module.__file__ = str(TESTS / rel)
+    sys.modules[module.__name__] = module
+    exec(compile(source, module.__file__, "exec"), module.__dict__)
+    for cls, methods in (drop or {}).items():
+        for method in methods:
+            if cls is None:
+                del module.__dict__[method]
+            else:
+                delattr(vars(module)[cls], method)
+    for name, obj in list(vars(module).items()):
+        if getattr(obj, "__module__", None) != module.__name__ and not _is_fixture(obj):
+            continue
+        if name.startswith("Test") and isinstance(obj, type):
+            into[f"Test_{stem}_{name[4:]}"] = obj
+        elif name.startswith("test_") and callable(obj):
+            into[f"test_{stem}_{name[5:]}"] = obj
+        elif _is_fixture(obj):
+            assert name not in into or into[name] is obj, name
+            into[name] = obj
+    return module
 
 
 JAX = Package("cadence_rag_tpu")
