@@ -8,7 +8,7 @@ for it (the tests do).
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -29,3 +29,28 @@ def resolve_device(device: DeviceLike) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
+
+
+# -- the device of the in-process models ---------------------------------------
+# The models (models/*) serve inside a process whose entry point named a
+# device: the server's ``startup(device)``, the embed service's
+# ``--device``, a script's or a gate's ``device``. That entry point sets it
+# here and the providers build their weights on it; a provider never picks
+# one itself.
+_models_device: Optional[torch.device] = None
+
+
+def set_models_device(device: DeviceLike) -> torch.device:
+    global _models_device
+    _models_device = resolve_device(device)
+    return _models_device
+
+
+def models_device() -> torch.device:
+    """The device set by ``set_models_device``; raises when none was."""
+    if _models_device is None:
+        raise RuntimeError(
+            "no device named for the in-process models: the entry point "
+            "(serve.api.startup, serve.embed_service, a gate or a script's "
+            "--device) sets it with device.set_models_device")
+    return _models_device

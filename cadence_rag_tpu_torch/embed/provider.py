@@ -1,9 +1,10 @@
 """Embedding provider registry + the reference-compatible facade.
 
 Counterpart of ``cadence_rag_tpu/embed/provider.py``. The registry builds
-the HTTP client (``embed/client.py``) and the deterministic stub
-(``embed/stub.py``); the in-process neural and Qwen3 embedders
-(``models/*``) are not ported yet, and naming them raises.
+the HTTP client (``embed/client.py``), the deterministic stub
+(``embed/stub.py``) and the in-process neural and Qwen3 embedders
+(``models/embedder.py``, ``models/qwen3.py``), which live on the device the
+process's entry point named (``device.models_device()``).
 
 ``embed_texts``/``embed_texts_batched``/``embeddings_enabled`` mirror the
 reference client surface (reference: app/embeddings.py:21-100) so the
@@ -72,10 +73,6 @@ def _check_dims(vectors: Sequence[Sequence[float]]) -> np.ndarray:
     return out
 
 
-# providers of the JAX package that the port cannot build yet
-NOT_PORTED_PROVIDERS = ("neural", "qwen3")
-
-
 def provider_kind() -> str:
     kind = (settings.embeddings_provider or "").strip().lower()
     if kind:
@@ -97,11 +94,14 @@ def get_provider() -> EmbeddingProvider:
         from .stub import HashEmbeddingProvider
 
         return HashEmbeddingProvider()
-    if kind in NOT_PORTED_PROVIDERS:
-        raise RuntimeError(
-            f"EMBEDDINGS_PROVIDER={kind!r}: the in-process embedders "
-            "(models/*) are not ported yet (ROADMAP Queue 1 item 6)"
-        )
+    if kind == "neural":
+        from ..models.embedder import NeuralEmbeddingProvider
+
+        return NeuralEmbeddingProvider.shared()
+    if kind == "qwen3":
+        from ..models.qwen3 import Qwen3EmbeddingProvider
+
+        return Qwen3EmbeddingProvider.shared()
     raise EmbeddingError("no embedding provider configured")
 
 

@@ -1,15 +1,20 @@
 """Rerank lane: rescore the fused top candidates before pack assembly.
 
-Counterpart of ``cadence_rag_tpu/engine/rerank.py``, host code only (SQLite
-rows and numpy). One provider is served:
+Counterpart of ``cadence_rag_tpu/engine/rerank.py``. Providers:
 
 - ``lexical``: deterministic full-precision BM25 rescoring of the candidate
   set (f32 dot of the query idf vector with each candidate's stored
   signature, plus an exact tech-token overlap bonus) — no weights needed,
-  gate-stable, the default.
+  gate-stable, the default;
+- ``neural``: banded hybrid — the lexical teacher's score quantized to
+  bands of ``TEACHER_BAND`` is the primary key, and the cross-encoder
+  (``models/reranker.py``, ``RERANKER_PARAMS_PATH``) breaks ties within a
+  band, so gold candidates that the teacher separates by more than a band
+  keep their order;
+- ``neural_raw``: the cross-encoder alone.
 
-``neural`` and ``neural_raw`` need the cross-encoder of ``models/reranker.py``,
-which is not ported: they raise.
+The cross-encoder runs on the device the process's entry point named
+(``device.models_device()``).
 
 Fused RRF order breaks ties for equal rerank scores (stable sort).
 """
@@ -17,7 +22,7 @@ Fused RRF order breaks ties for equal rerank scores (stable sort).
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -27,6 +32,9 @@ from ..store.db import get_store
 
 TECH_OVERLAP_BONUS = 2.0
 RankedItem = Tuple[int, Set[str], float]  # (doc_id, lane_hits, rrf_score)
+# teacher-score quantization for the hybrid provider: int8-quantized
+# signatures make sub-0.25 lexical score differences noise
+TEACHER_BAND = 0.25
 
 
 def _lexical_scores(
@@ -83,12 +91,36 @@ def prior_for_texts(
     return out
 
 
-NEURAL_NOT_PORTED = (
-    "RERANK_PROVIDER={provider}: the neural reranker (models/reranker.py) is "
-    "not ported yet (ROADMAP Queue 1 item 6); the port serves "
-    "RERANK_PROVIDER=lexical"
-)
-NEURAL_PROVIDERS = ("neural", "neural_raw")
+def _neural_scores(
+    query: str, table: str, id_col: str, text_col: str,
+    doc_ids: Sequence[int],
+    doc_freq: Optional[np.ndarray] = None, n_docs: int = 0,
+) -> Dict[int, float]:
+    from ..models.reranker import NeuralReranker
+
+    store = get_store()
+    placeholders = ",".join("?" * len(doc_ids))
+    with store.read() as conn:
+        rows = conn.execute(
+            f"SELECT {id_col} AS i, {text_col} AS text FROM {table} "
+            f"WHERE {id_col} IN ({placeholders})",
+            [int(d) for d in doc_ids],
+        ).fetchall()
+    texts = [row["text"] for row in rows]
+    model = NeuralReranker.shared()
+    priors = None
+    if model.cfg.prior_residual and doc_freq is not None:
+        # score = frozen lexical prior + trained residual: feed the same
+        # stored-signature rescore the lexical provider uses
+        prior_map = _lexical_scores(
+            query, table, id_col, text_col, doc_ids, doc_freq, n_docs
+        )
+        priors = np.array(
+            [prior_map.get(int(row["i"]), 0.0) for row in rows],
+            dtype=np.float32,
+        )
+    logits = model.score(query, texts, priors=priors)
+    return {int(row["i"]): float(s) for row, s in zip(rows, logits)}
 
 
 def rerank(
@@ -110,11 +142,30 @@ def rerank(
         "artifact_chunks": ("artifact_chunks", "artifact_chunk_id", "content"),
     }[corpus_name]
     doc_ids = [doc_id for doc_id, _, _ in head]
-    if provider in NEURAL_PROVIDERS:
-        raise NotImplementedError(NEURAL_NOT_PORTED.format(provider=provider))
-    scores = _lexical_scores(
-        query, table, id_col, text_col, doc_ids, doc_freq, n_docs
-    )
+    if provider == "neural_raw":
+        scores = _neural_scores(query, table, id_col, text_col, doc_ids,
+                                doc_freq, n_docs)
+    elif provider == "neural":
+        teacher = _lexical_scores(
+            query, table, id_col, text_col, doc_ids, doc_freq, n_docs
+        )
+        refine = _neural_scores(query, table, id_col, text_col, doc_ids,
+                                doc_freq, n_docs)
+        lo = min(refine.values(), default=0.0)
+        hi = max(refine.values(), default=1.0)
+        span = max(hi - lo, 1e-6)
+        scores = {
+            doc_id: (
+                # primary: teacher band; secondary: neural in (0, 1)
+                np.floor(teacher.get(doc_id, 0.0) / TEACHER_BAND)
+                + 0.999 * (refine.get(doc_id, lo) - lo) / span
+            )
+            for doc_id in doc_ids
+        }
+    else:
+        scores = _lexical_scores(
+            query, table, id_col, text_col, doc_ids, doc_freq, n_docs
+        )
     reordered = sorted(
         head,
         key=lambda item: scores.get(item[0], float("-inf")),

@@ -175,7 +175,7 @@ def measure_recall(
     batch: int = 16,
     density: float = 1.0,
     mask_shape: str = "contiguous",
-    device="cpu",
+    device="cuda",
 ) -> Dict:
     docs = gen_docs(n, n_centers=max(64, n // 64), seed=seed,
                     device=resolve_device(device))
@@ -208,7 +208,7 @@ def main() -> None:
         "--mask-shape", choices=["contiguous", "random"], default="contiguous",
         help="contiguous = the worst case (date/call filters)",
     )
-    parser.add_argument("--device", default="cpu",
+    parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cpu, cuda, cuda:N)")
     args = parser.parse_args()
     failed = False

@@ -126,7 +126,7 @@ def run_sweep(
     mask_shapes,
     seed: int = 0,
     rounds: int = 4,
-    device="cpu",
+    device="cuda",
 ):
     dev = resolve_device(device)
     docs = gen_docs(n, n_centers=4096, seed=seed, device=dev)
@@ -192,7 +192,7 @@ def main() -> None:
     p.add_argument("--targets", default="0.95")
     p.add_argument("--mask-shapes", default="contiguous,random")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cpu",
+    p.add_argument("--device", default="cuda",
                    help="torch device to run on (cpu, cuda, cuda:N)")
     args = p.parse_args()
     run_sweep(

@@ -9,9 +9,10 @@ in-process provider, so the dense lane is exercised — the reference gate
 runs lexical-only), resolve gold ids, run retrieve_evidence(ids_only) per
 gold query, compute recall@k / MRR / nDCG@k, and fail below thresholds
 (defaults mrr>=0.60, recall@20>=0.80, ndcg@10>=0.70). ``build_vocab``
-gates the learned vocab head end to end and ``rerank_provider="lexical"``
-the rerank lane; the JAX gate's neural embedder and neural rerankers wait
-for ``models/*`` (ROADMAP Queue 1 item 6) and raise.
+gates the learned vocab head end to end and ``rerank_provider`` the rerank
+lane (``lexical``, or the cross-encoder of ``reranker_params_path`` with
+``neural``/``neural_raw``); ``provider="neural"`` embeds with the weights of
+``embedder_params_path``. The in-process models live on ``device`` too.
 
 Usage: python -m cadence_rag_tpu_torch.evals.real_gate [--device cuda|cpu]
 """
@@ -44,10 +45,15 @@ def run_gate(
     min_ndcg10: float = DEFAULT_THRESHOLDS["min_ndcg10"],
     store_dir: Optional[str] = None,
     provider: str = "stub",
+    embedder_params_path: Optional[str] = None,
     build_vocab: bool = False,
     rerank_provider: str = "",
+    reranker_params_path: str = "",
 ) -> Dict:
     from ..core.index import get_index, reset_index
+    from ..device import set_models_device
+    from ..models.embedder import NeuralEmbeddingProvider
+    from ..models.reranker import NeuralReranker
     from ..store.db import reset_store
 
     workdir = Path(store_dir or tempfile.mkdtemp(prefix="cadence_gate_"))
@@ -55,8 +61,9 @@ def run_gate(
     saved = {
         key: getattr(settings, key)
         for key in ("store_path", "embeddings_provider", "embeddings_base_url",
-                    "index_initial_capacity", "rerank_enabled",
-                    "rerank_provider")
+                    "index_initial_capacity", "embedder_params_path",
+                    "rerank_enabled", "rerank_provider",
+                    "reranker_params_path")
     }
     settings.store_path = str(workdir / "gate.db")
     settings.embeddings_provider = provider
@@ -65,13 +72,14 @@ def run_gate(
     if rerank_provider:
         # gate the FULL path with the rerank lane on: the fixture gate is
         # the lexically-saturated register a reranker must not regress
-        from ..engine.rerank import NEURAL_NOT_PORTED, NEURAL_PROVIDERS
-
-        if rerank_provider in NEURAL_PROVIDERS:
-            raise NotImplementedError(
-                NEURAL_NOT_PORTED.format(provider=rerank_provider))
         settings.rerank_enabled = True
         settings.rerank_provider = rerank_provider
+        if reranker_params_path:
+            settings.reranker_params_path = reranker_params_path
+        NeuralReranker.reset()
+    if embedder_params_path is not None:
+        settings.embedder_params_path = embedder_params_path
+        NeuralEmbeddingProvider._instance = None  # rebind to these weights
     reset_store()
     reset_index()
     try:
@@ -81,7 +89,7 @@ def run_gate(
         from .fixtures import GOLD_QUERIES, ingest_fixtures, resolve_gold
         from .metrics import compute_metrics
 
-        get_index(device)
+        set_models_device(get_index(device).device)
         ingest_fixtures()
         run_embedding_backfill(batch_size=16, source="real_gate")
         if build_vocab:
@@ -120,6 +128,10 @@ def run_gate(
             setattr(settings, key, value)
         reset_store()
         reset_index()
+        if embedder_params_path is not None:
+            NeuralEmbeddingProvider._instance = None
+        if rerank_provider:
+            NeuralReranker.reset()
         if not keep_store:
             shutil.rmtree(workdir, ignore_errors=True)
 
@@ -135,7 +147,10 @@ def main() -> None:
                         default=DEFAULT_THRESHOLDS["min_recall20"])
     parser.add_argument("--min-ndcg10", type=float,
                         default=DEFAULT_THRESHOLDS["min_ndcg10"])
-    parser.add_argument("--provider", default="stub", choices=["stub", "http"])
+    parser.add_argument("--provider", default="stub",
+                        choices=["stub", "neural", "http"])
+    parser.add_argument("--embedder-params", default=None,
+                        help="weights for --provider neural")
     args = parser.parse_args()
     configure_logging(settings.log_level)
     outcome = run_gate(
@@ -145,6 +160,7 @@ def main() -> None:
         min_recall20=args.min_recall20,
         min_ndcg10=args.min_ndcg10,
         provider=args.provider,
+        embedder_params_path=args.embedder_params,
     )
     print(json.dumps(outcome["metrics"], indent=2))
     if outcome["failures"]:

@@ -1,0 +1,447 @@
+"""The neural text embedder, in torch.
+
+Counterpart of ``cadence_rag_tpu/models/embedder.py``, serving half: the
+config, the hash tokenizer, the seeded initial weights (``models/prng.py``
+reproduces ``jax.random``), the forward pass, the npz checkpoints and the
+``EMBEDDINGS_PROVIDER=neural`` provider. The vector contract is the JAX
+package's: a causal transformer, last-token pooling, the hidden projected to
+``embed_dim`` and mixed with a frozen hash-bag head, L2 normalised.
+
+Precision. Every product the JAX package takes with bf16 operands and an f32
+result (``preferred_element_type=f32``) runs here one of two ways:
+
+- the plain path (``plain=True``; the default on the CPU): f32 arithmetic
+  on bf16-rounded operands. Each product of two bf16 values is exact in
+  f32, so it matches JAX up to summation order;
+- the card path (the default on CUDA): bf16 tensor-core GEMMs with an f32
+  output (``torch.mm``/``torch.bmm`` with ``out_dtype``).
+
+Layer norms, softmax, GELU and the bag term run in f32 on both.
+
+Checkpoints are the JAX package's npz files, keyed by JAX tree paths
+(``"['blocks']/[0]/['ln1']/['bias']"``): a file saved by either package
+loads in the other. A frozen bag head is not stored; loading regenerates it
+from ``(cfg, init_seed)``, on the model's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import DeviceLike, models_device, resolve_device
+from ..ops.hashing import fnv1a64
+from . import prng
+
+# --------------------------------------------------------------- config ----
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedderConfig:
+    vocab_buckets: int = 32768
+    d_model: int = 256
+    n_layers: int = 4
+    n_heads: int = 8
+    d_ff: int = 1024
+    max_len: int = 128
+    embed_dim: int = 1024          # output dim (truncation target)
+    # residual hash-bag head, frozen: see the JAX package's config
+    use_bag: bool = True
+    bag_init_scale: float = 1.0    # bag mixture weight at init
+    tfm_init_scale: float = 0.5    # transformer mixture weight at init
+    freeze_bag: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# ------------------------------------------------------------ tokenizer ----
+
+def hash_tokenize(text: str, cfg: EmbedderConfig) -> np.ndarray:
+    """Word-level FNV-1a hashing into vocab buckets; ids are 1-based
+    (0 = pad). Deterministic, no external vocab."""
+    ids: List[int] = []
+    for word in text.lower().split():
+        h = fnv1a64(b"tok:" + word.encode("utf-8"))
+        ids.append(int(h % (cfg.vocab_buckets - 1)) + 1)
+        if len(ids) >= cfg.max_len:
+            break
+    return np.asarray(ids, dtype=np.int32)
+
+
+def batch_tokenize(texts: Sequence[str], cfg: EmbedderConfig) -> np.ndarray:
+    batch = np.zeros((len(texts), cfg.max_len), dtype=np.int32)
+    for i, text in enumerate(texts):
+        ids = hash_tokenize(text, cfg)
+        batch[i, : len(ids)] = ids
+    return batch
+
+
+# ------------------------------------------------- products and trees ----
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
+    """``(..., K) @ (K, N)`` of bf16-rounded operands with an f32 result."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if plain:
+        return a16.float() @ b16.float()
+    out = torch.mm(a16.reshape(-1, a.shape[-1]), b16, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
+    """Batched ``(..., M, K) @ (..., K, N)`` of bf16-rounded operands with
+    an f32 result."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if plain:
+        return a16.float() @ b16.float()
+    lead = a.shape[:-2]
+    out = torch.bmm(a16.reshape(-1, *a.shape[-2:]),
+                    b16.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+def use_plain(x: torch.Tensor, plain: Optional[bool]) -> bool:
+    """The plain path unless asked otherwise on a CUDA tensor."""
+    return x.device.type != "cuda" if plain is None else bool(plain)
+
+
+def jax_path(name: str) -> str:
+    """A module's parameter name -> the JAX tree path the npz files use
+    (``blocks.0.ln1.bias`` -> ``['blocks']/[0]/['ln1']/['bias']``)."""
+    return "/".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                    for p in name.split("."))
+
+
+def module_name(path: str) -> str:
+    """The inverse of ``jax_path``."""
+    return ".".join(re.findall(r"\['?([^'\]]+)'?\]", path))
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict/list of arrays (the JAX package's params) ->
+    {module name: array}."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for key, sub in items:
+        out.update(flatten_tree(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def _tensor(value: Any) -> torch.Tensor:
+    return value if isinstance(value, torch.Tensor) else torch.tensor(np.asarray(value))
+
+
+def _frozen(value: Any, device: torch.device) -> nn.Parameter:
+    return nn.Parameter(_tensor(value).to(device), requires_grad=False)
+
+
+def load_flat(module: nn.Module, flat: Mapping[str, Any]) -> None:
+    """Fill ``module``'s parameters from {module name: array}; every
+    parameter must be given, with its shape."""
+    own = dict(module.named_parameters())
+    missing = sorted(set(own) - set(flat))
+    extra = sorted(set(flat) - set(own))
+    if missing or extra:
+        raise KeyError(f"parameters missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, param in own.items():
+            value = _tensor(flat[name])
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, "
+                                 f"expected {tuple(param.shape)}")
+            param.copy_(value.to(param.dtype))
+
+
+# ---------------------------------------------------------------- model ----
+
+class LayerNorm(nn.Module):
+    """Biased variance, eps 1e-5, f32 (the JAX package's ``_layer_norm``)."""
+
+    def __init__(self, dim: int, device: torch.device):
+        super().__init__()
+        self.scale = _frozen(torch.ones(dim), device)
+        self.bias = _frozen(torch.zeros(dim), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.scale + self.bias
+
+
+class Block(nn.Module):
+    """Pre-LN attention + GELU MLP; the attention is always causal (the
+    reranker shares this block, as in the JAX package)."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 device: torch.device):
+        super().__init__()
+        self.n_heads = n_heads
+        self.ln1 = LayerNorm(d_model, device)
+        self.wqkv = _frozen(torch.zeros(d_model, 3 * d_model), device)
+        self.wo = _frozen(torch.zeros(d_model, d_model), device)
+        self.ln2 = LayerNorm(d_model, device)
+        self.w_in = _frozen(torch.zeros(d_model, d_ff), device)
+        self.w_out = _frozen(torch.zeros(d_ff, d_model), device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                plain: bool) -> torch.Tensor:
+        batch, seq, d_model = x.shape
+        head_dim = d_model // self.n_heads
+        qkv = mm_f32(self.ln1(x), self.wqkv, plain)
+        q, k, v = (t.reshape(batch, seq, self.n_heads, head_dim).transpose(1, 2)
+                   for t in qkv.split(d_model, dim=-1))
+        logits = bmm_f32(q, k.transpose(-1, -2), plain) / math.sqrt(head_dim)
+        causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
+        attn_mask = causal[None, None] & mask[:, None, None, :]
+        logits = torch.where(attn_mask, logits, -1e9)
+        weights = torch.softmax(logits, dim=-1)
+        ctx = bmm_f32(weights, v, plain)
+        ctx = ctx.transpose(1, 2).reshape(batch, seq, d_model)
+        x = x + mm_f32(ctx, self.wo, plain)
+        ff = mm_f32(self.ln2(x), self.w_in, plain)
+        ff = F.gelu(ff, approximate="tanh")
+        return x + mm_f32(ff, self.w_out, plain)
+
+
+class Encoder(nn.Module):
+    """Token and position embeddings, the blocks and the final layer norm,
+    with the JAX package's parameter tree (shared with the reranker)."""
+
+    def __init__(self, cfg: EmbedderConfig, device: DeviceLike):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.tok_emb = _frozen(torch.zeros(cfg.vocab_buckets, cfg.d_model), device)
+        self.pos_emb = _frozen(torch.zeros(cfg.max_len, cfg.d_model), device)
+        self.final_ln = LayerNorm(cfg.d_model, device)
+        self.out_proj = _frozen(torch.zeros(cfg.d_model, cfg.embed_dim), device)
+        self.blocks = nn.ModuleList(
+            Block(cfg.d_model, cfg.n_heads, cfg.d_ff, device)
+            for _ in range(cfg.n_layers))
+        if cfg.use_bag:
+            self.bag_emb = _frozen(
+                torch.zeros(cfg.vocab_buckets, cfg.embed_dim), device)
+            self.mix = _frozen(torch.zeros(2), device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_emb.device
+
+    def hidden(self, token_ids: torch.Tensor, plain: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (final-layer-normed hidden (B, L, d) f32, pad mask (B, L))."""
+        mask = token_ids != 0
+        x = self.tok_emb[token_ids] + self.pos_emb[None, : token_ids.shape[1]]
+        for block in self.blocks:
+            x = block(x, mask, plain)
+        return self.final_ln(x), mask
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """{JAX tree path: tensor} of every parameter."""
+        return {jax_path(n): p.detach() for n, p in self.named_parameters()}
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=1e-6)
+
+
+class Embedder(Encoder):
+    """(B, L) int token ids -> (B, embed_dim) unit vectors."""
+
+    @torch.inference_mode()
+    def forward(self, token_ids: torch.Tensor,
+                plain: Optional[bool] = None) -> torch.Tensor:
+        token_ids = token_ids.to(self.device, torch.int64)
+        plain = use_plain(token_ids, plain)
+        x, mask = self.hidden(token_ids, plain)
+        # last-token pooling: the final non-pad position of each row
+        lengths = torch.clamp(mask.sum(dim=1) - 1, min=0)
+        pooled = x[torch.arange(x.shape[0], device=x.device), lengths]
+        out = mm_f32(pooled, self.out_proj, plain)
+        if self.cfg.use_bag:
+            counts = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+            bag = (mask[..., None].float() * self.bag_emb[token_ids]).sum(dim=1)
+            bag = _unit(bag / counts)
+            out = self.mix[0] * bag + self.mix[1] * _unit(out)
+        return _unit(out)
+
+
+def encode(model: Embedder, token_ids, plain: Optional[bool] = None
+           ) -> torch.Tensor:
+    """(B, L) int32 -> (B, embed_dim) unit vectors (last-token pooled)."""
+    return model(torch.as_tensor(np.asarray(token_ids)), plain)
+
+
+# --------------------------------------------------------------- params ----
+
+def _init_makers(cfg: EmbedderConfig, key: torch.Tensor, device: torch.device
+                 ) -> Dict[str, Any]:
+    """{module name: () -> tensor}: the JAX package's ``init_params``, leaf
+    by leaf, so a loader can draw only the leaves a file lacks."""
+    keys = prng.split(key, 4 + cfg.n_layers)
+    scale = 0.02
+
+    def normal(k, shape, s=None):
+        return lambda: prng.normal(k, shape, torch.float32, device, scale=s)
+
+    def const(shape, value):
+        return lambda: torch.full(shape, value, dtype=torch.float32, device=device)
+
+    makers: Dict[str, Any] = {
+        "tok_emb": normal(keys[0], (cfg.vocab_buckets, cfg.d_model), scale),
+        "pos_emb": normal(keys[1], (cfg.max_len, cfg.d_model), scale),
+        "final_ln.scale": const((cfg.d_model,), 1.0),
+        "final_ln.bias": const((cfg.d_model,), 0.0),
+        "out_proj": normal(keys[2], (cfg.d_model, cfg.embed_dim), scale),
+    }
+    if cfg.use_bag:
+        # unit-gaussian rows: at init the bag term IS the hash stub
+        makers["bag_emb"] = normal(keys[3], (cfg.vocab_buckets, cfg.embed_dim))
+        makers["mix"] = lambda: torch.tensor(
+            [cfg.bag_init_scale, cfg.tfm_init_scale], dtype=torch.float32,
+            device=device)
+    for i in range(cfg.n_layers):
+        bkey = prng.split(keys[4 + i], 6)
+        d, f = cfg.d_model, cfg.d_ff
+        makers.update({
+            f"blocks.{i}.ln1.scale": const((d,), 1.0),
+            f"blocks.{i}.ln1.bias": const((d,), 0.0),
+            f"blocks.{i}.wqkv": normal(bkey[0], (d, 3 * d), scale),
+            f"blocks.{i}.wo": normal(bkey[1], (d, d), scale),
+            f"blocks.{i}.ln2.scale": const((d,), 1.0),
+            f"blocks.{i}.ln2.bias": const((d,), 0.0),
+            f"blocks.{i}.w_in": normal(bkey[2], (d, f), scale),
+            f"blocks.{i}.w_out": normal(bkey[3], (f, d), scale),
+        })
+    return makers
+
+
+def init_params(cfg: EmbedderConfig, key: torch.Tensor,
+                device: DeviceLike) -> Embedder:
+    """The JAX package's ``init_params(cfg, key)``, made on ``device``."""
+    device = resolve_device(device)
+    model = Embedder(cfg, device)
+    load_flat(model, {n: make() for n, make in
+                      _init_makers(cfg, key, device).items()})
+    return model
+
+
+def from_jax_params(params: Mapping[str, Any], cfg: EmbedderConfig,
+                    device: DeviceLike) -> Embedder:
+    """The embedder from the JAX package's parameter tree (numpy leaves)."""
+    model = Embedder(cfg, device)
+    load_flat(model, flatten_tree(params))
+    return model
+
+
+# ------------------------------------------------------------ persistence ----
+
+def save_params(path: str, model: Embedder, init_seed: int = 0) -> None:
+    """Flat-key npz checkpoint in the JAX package's format; a frozen bag
+    head is not stored (it regenerates from ``(cfg, init_seed)``)."""
+    cfg = model.cfg
+    flat = {}
+    for name, leaf in model.tree().items():
+        if cfg.use_bag and cfg.freeze_bag and name == "['bag_emb']":
+            continue
+        flat[name] = leaf.cpu().numpy()
+    flat["__cfg__"] = np.array(
+        [cfg.vocab_buckets, cfg.d_model, cfg.n_layers, cfg.n_heads,
+         cfg.d_ff, cfg.max_len, cfg.embed_dim, int(cfg.use_bag),
+         int(cfg.freeze_bag), int(init_seed)],
+        dtype=np.int64,
+    )
+    np.savez(path, **flat)
+
+
+def load_params(path: str, device: DeviceLike
+                ) -> Tuple[Embedder, EmbedderConfig]:
+    """-> (the model on ``device``, its config); leaves the file lacks (the
+    frozen bag) are drawn from ``(cfg, init_seed)`` on ``device``."""
+    device = resolve_device(device)
+    with np.load(path) as data:
+        vals = data["__cfg__"]
+        cfg = EmbedderConfig(
+            vocab_buckets=int(vals[0]), d_model=int(vals[1]),
+            n_layers=int(vals[2]), n_heads=int(vals[3]), d_ff=int(vals[4]),
+            max_len=int(vals[5]), embed_dim=int(vals[6]),
+            # checkpoints predating the bag head have 7 fields -> no bag
+            use_bag=bool(vals[7]) if vals.shape[0] > 7 else False,
+            freeze_bag=bool(vals[8]) if vals.shape[0] > 8 else True,
+        )
+        init_seed = int(vals[9]) if vals.shape[0] > 9 else 0
+        makers = _init_makers(cfg, prng.PRNGKey(init_seed), device)
+        flat = {name: (data[jax_path(name)] if jax_path(name) in data.files
+                       else make())
+                for name, make in makers.items()}
+    model = Embedder(cfg, device)
+    load_flat(model, flat)
+    return model, cfg
+
+
+# ---------------------------------------------------- provider interface ----
+
+class NeuralEmbeddingProvider:
+    """Serves the embed_texts contract from the in-process model, on the
+    device its entry point named (``device.models_device()``) unless one is
+    given."""
+
+    _instance: Optional["NeuralEmbeddingProvider"] = None
+
+    def __init__(self, cfg: Optional[EmbedderConfig] = None, seed: int = 0,
+                 device: Optional[DeviceLike] = None):
+        from ..config import settings
+
+        self.device = resolve_device(device) if device is not None \
+            else models_device()
+        params_path = (settings.embedder_params_path or "").strip()
+        if cfg is None and params_path:
+            self.model, self.cfg = load_params(params_path, self.device)
+            if int(self.cfg.embed_dim) != int(settings.embeddings_dim):
+                # fail at startup with the actual misconfiguration, not as
+                # wrong-width vectors on every request
+                raise RuntimeError(
+                    f"embedder checkpoint {params_path} produces "
+                    f"{self.cfg.embed_dim}-d vectors but EMBEDDINGS_DIM="
+                    f"{settings.embeddings_dim}; retrain or fix the env"
+                )
+            suffix = "-tuned"
+        else:
+            self.cfg = cfg or EmbedderConfig(
+                embed_dim=int(settings.embeddings_dim)
+            )
+            self.model = init_params(self.cfg, prng.PRNGKey(seed), self.device)
+            suffix = ""
+        self.model_id = (
+            f"cadence-neural-embedder-{self.cfg.d_model}d"
+            f"{self.cfg.n_layers}L{suffix}"
+        )
+
+    @classmethod
+    def shared(cls) -> "NeuralEmbeddingProvider":
+        if cls._instance is None or cls._instance.device != models_device():
+            cls._instance = cls()
+        return cls._instance
+
+    def embed(self, texts: Sequence[str]):
+        from ..embed.provider import EmbeddingResult
+
+        # rows are independent and eager torch compiles nothing, so the
+        # batch is not padded to a power of two as the JAX provider does
+        tokens = torch.from_numpy(batch_tokenize(texts, self.cfg))
+        vectors = self.model(tokens).float().cpu().numpy()
+        return EmbeddingResult(vectors=vectors, model=self.model_id)

@@ -12,8 +12,8 @@ Each request runs under an X-Request-ID logging context
 (reference: app/main.py:46-60).
 
 Counterpart of ``cadence_rag_tpu/serve/api.py``, every route of it.
-``startup`` takes the device the index lives on, raises for each setting
-whose feature is not ported, reconciles an index already populated with the
+``startup`` takes the device the index and the in-process models live on,
+raises for each setting whose feature is not ported, reconciles an index already populated with the
 store, and starts the store syncer when ``STORE_SYNC_INTERVAL_S > 0``.
 """
 
@@ -30,10 +30,8 @@ from pydantic import ValidationError
 
 from ..config import settings
 from ..core.index import get_index
-from ..device import DeviceLike
-from ..embed.provider import NOT_PORTED_PROVIDERS, provider_kind
+from ..device import DeviceLike, set_models_device
 from ..engine.browse import expand_evidence, get_call, get_chunk, list_calls
-from ..engine.rerank import NEURAL_NOT_PORTED, NEURAL_PROVIDERS
 from ..engine.retrieve import retrieve_evidence
 from ..ingest.fs_queue import get_ingest_job, list_ingest_jobs
 from ..ingest.ingest import ingest_analysis, ingest_call, ingest_transcript
@@ -420,13 +418,6 @@ def _unported_settings() -> List[str]:
     """Why the current settings cannot be served by the port: one line
     per setting whose feature is not ported, naming its ROADMAP item."""
     problems = []
-    if settings.rerank_enabled and settings.rerank_provider in NEURAL_PROVIDERS:
-        problems.append(
-            NEURAL_NOT_PORTED.format(provider=settings.rerank_provider))
-    if provider_kind() in NOT_PORTED_PROVIDERS:
-        problems.append(
-            f"EMBEDDINGS_PROVIDER={provider_kind()!r}: the in-process "
-            "embedders (models/*) are not ported yet (ROADMAP Queue 1 item 6)")
     if settings.dist_coordinator.strip() or settings.mesh_shape.strip():
         problems.append(
             "DIST_COORDINATOR / MESH_SHAPE: multi-device serving "
@@ -465,6 +456,8 @@ def startup(device: DeviceLike = "cuda") -> None:
     from ..ingest.sync import get_syncer
 
     index = get_index(device)
+    # the in-process embedders and the cross-encoder serve beside the index
+    set_models_device(index.device)
     if index.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     syncer = get_syncer()

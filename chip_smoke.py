@@ -1240,7 +1240,7 @@ def kernel_device_ms(prof):
 
 def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
               warm_rounds=20, bench_iters=10, profile=True, window_ms=5,
-              write_rounds=40, lifecycle_rounds=10):
+              write_rounds=40, lifecycle_rounds=10, models_preset="4b"):
     """The port's /retrieve request path: an index of ``n_chunks`` +
     ``n_artifacts`` synthetic rows on ``device`` with matching rows in a
     temporary SQLite store, the known rows ingested and embedded through
@@ -1254,7 +1254,9 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
     with ``profile``, K1 and K3 in a torch.profiler window over one round
     of (a). Then the engine's host split, serial and pipelined QPS, and
     the real gate on ``device``, after the ``writes`` phase
-    (``run_writes``) on the same index and store. -> summary"""
+    (``run_writes``), the lifecycle steps (``run_lifecycle_served``) and the
+    models phase's served steps (``run_models_served``, the Qwen3 encoder
+    at ``models_preset``) on the same index and store. -> summary"""
     import tempfile
 
     from cadence_rag_tpu_torch.config import settings
@@ -1449,6 +1451,9 @@ def run_serve(device, n_chunks, n_artifacts, concurrency=128, cold_rounds=2,
             device, index, workdir, dispatches,
             summary["writes"]["compaction"]["survivors"], concurrency=concurrency,
             rounds=lifecycle_rounds, traffic_rounds=max(write_rounds // 3, 5))
+        summary["models"] = run_models_served(
+            device, index, workdir, dispatches, preset=models_preset,
+            concurrency=concurrency, rounds=lifecycle_rounds)
     finally:
         if stop is not None:
             stop()
@@ -2810,6 +2815,499 @@ def run_sync_growth(device, index, batches, batch):
         settings.growth_migration_enabled = enabled
 
 
+# -- models: the Qwen3 encoder beside the served index, the neural embedder and
+# reranker, the /embed service ---------------------------------------------------
+# known rows for the Qwen3 step: distinct words at both ends (the encoder pools
+# the last position), distinct tech tokens
+QWEN3_WORDS = ("amber", "basalt", "cobalt", "dune", "ember", "fjord", "garnet",
+               "harbor", "indigo", "jasper", "kelp", "lagoon", "marble", "nectar",
+               "onyx", "prairie")
+QWEN3_KNOWN_TEXT = ("{w} check {i}: the {w} replica lagged behind after the rollout "
+                    "of v5.{i}.2, tracked in OPS-{t} near {w}")
+QWEN3_ATOL = 1e-2        # card (bf16 GEMMs, f32 out) vs plain, unit vectors
+QWEN3_MIN_COS = 0.999
+EMBED_SERVICE_ATOL = 1e-5
+# the neural real gate's answers on the card hold the CPU's ids this deep: K1's
+# lexical half is held to its plain version within 1e-3 (the f32 query in three
+# bf16 pieces), so rows whose fused scores tie that closely may swap below
+GATE_HEAD = 10
+ROOT = Path(__file__).resolve().parent
+EMBEDDER_ARTIFACT = ROOT / "artifacts" / "embedder" / "tuned_small_v1.npz"
+RERANKER_ARTIFACT = ROOT / "artifacts" / "reranker" / "two_register_v1.npz"
+
+
+def encoder_bound_ms(cfg, tokens):
+    """The least time of one forward pass over ``tokens`` padded tokens: the
+    larger of 2 x non-embedding parameters x tokens at the bf16 tensor peak
+    and the bf16 non-embedding weights read once at the HBM peak."""
+    params = cfg.param_count() - cfg.vocab_buckets * cfg.d_model
+    return max(2.0 * params * tokens / (BF16_PEAK_TFLOPS * 1e12),
+               2.0 * params / (HBM_PEAK_GBS * 1e9)) * 1e3
+
+
+def first_layers(model, n_layers):
+    """An encoder over the first ``n_layers`` of ``model``'s stacked weights
+    (views, no copy)."""
+    import dataclasses
+
+    from cadence_rag_tpu_torch.models.qwen3 import Qwen3Encoder
+
+    sub = Qwen3Encoder(dataclasses.replace(model.cfg, n_layers=n_layers),
+                       model.device)
+    for name, param in sub.named_parameters():
+        full = getattr(model, name)
+        param.data = full[:n_layers] if name not in ("tok_emb", "final_norm") else full
+    return sub
+
+
+def check_encoder(provider, queries, chunk_texts, depth):
+    """The encoder's card path against its plain path (f32 products of
+    bf16-rounded operands) at its widths and ``depth`` layers. -> report"""
+    sub = first_layers(provider.model, depth)
+    out = {"depth": depth}
+    for name, texts in (("queries", queries), ("chunks", chunk_texts)):
+        tokens = torch.from_numpy(provider.tokenize(texts))
+        card, plain = sub(tokens), sub(tokens, plain=True)
+        if not (torch.isfinite(card).all() and torch.isfinite(plain).all()):
+            raise RuntimeError(f"qwen3 {name}: non-finite vectors")
+        err = float((card - plain).abs().max())
+        cos = float((card * plain).sum(dim=1).min())
+        if err > QWEN3_ATOL or cos < QWEN3_MIN_COS:
+            raise RuntimeError(f"qwen3 {name}: card vs plain |err| {err:.3g}, min "
+                               f"cosine {cos:.6f} (limits {QWEN3_ATOL}, "
+                               f"{QWEN3_MIN_COS})")
+        out[name] = {"shape": list(tokens.shape), "max_abs_err": err, "min_cos": cos}
+    del sub
+    return out
+
+
+def ingest_texts_as_call(external_id, texts, index=None):
+    """One call whose transcript holds ``texts``, one chunk each, through
+    the ingest path. With ``index``, the store's chunk ids first move past
+    the index's highest: rows appended to the index alone (the lifecycle's
+    fill) took the ids after the store's, and an insert of an id the index
+    holds is a no-op. -> (call_id, chunk ids, the chunks' stored texts)"""
+    from cadence_rag_tpu_torch.ingest.ingest import ingest_transcript
+    from cadence_rag_tpu_torch.schemas import CallRef, ChunkingOptions, UtteranceIn
+    from cadence_rag_tpu_torch.store.db import get_store
+
+    if index is not None:
+        corpus = index.chunks
+        with corpus.lock:
+            top = int(corpus.h_ids[:corpus.count].max(initial=0))
+        with get_store().tx() as conn:
+            conn.execute("UPDATE sqlite_sequence SET seq = MAX(seq, ?) "
+                         "WHERE name = 'chunks'", (top,))
+    call_id, _n, n_chunks = ingest_transcript(
+        CallRef(external_id=external_id, title=external_id),
+        [UtteranceIn(speaker="Ana", start_ts_ms=i * 1000, end_ts_ms=i * 1000 + 900,
+                     text=t) for i, t in enumerate(texts)],
+        ChunkingOptions(target_tokens=8, max_tokens=400, overlap_tokens=0))
+    if n_chunks != len(texts):
+        raise RuntimeError(f"{external_id}: {n_chunks} chunks for {len(texts)} texts")
+    with get_store().read() as conn:
+        rows = conn.execute(
+            "SELECT chunk_id, text FROM chunks WHERE call_id = ? ORDER BY chunk_id",
+            (call_id,)).fetchall()
+    return call_id, [int(r["chunk_id"]) for r in rows], [r["text"] for r in rows]
+
+
+def run_models_served(device, index, workdir, dispatches, preset="4b",
+                      concurrency=128, rounds=10, depth=2, n_chunk_texts=32):
+    """Steps 1, 2 and the served half of 4 of the models phase, on the served
+    index and store: the Qwen3 encoder made on the card beside the index,
+    held against its plain path at ``depth`` layers and timed at its full
+    depth; then the HTTP server with ``EMBEDDINGS_PROVIDER=qwen3`` over the
+    index, known rows ingested and embedded by the encoder through the
+    backfill, rounds of ``concurrency`` ids_only requests beside stub rounds
+    of the same run, every known row first in the dense lane and fused; then
+    (b)-traffic with ``RERANK_PROVIDER=neural`` beside the lexical provider.
+    -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.device import set_models_device
+    from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
+    from cadence_rag_tpu_torch.evals.synth import synth_text
+    from cadence_rag_tpu_torch.models.qwen3 import Qwen3EmbeddingProvider
+    from cadence_rag_tpu_torch.models.reranker import NeuralReranker
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+    from cadence_rag_tpu_torch.utils import events
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    saved = {k: getattr(settings, k) for k in (
+        "embeddings_provider", "qwen3_preset", "rerank_enabled", "rerank_provider",
+        "reranker_params_path")}
+    stop = None
+    try:
+        # 1. the encoder, made on the card beside the index
+        settings.qwen3_preset = preset
+        set_models_device(device)
+        Qwen3EmbeddingProvider._instance = None
+        sync()
+        held = torch.cuda.memory_allocated() if cuda else None
+        t0 = time.perf_counter()
+        provider = Qwen3EmbeddingProvider.shared()
+        sync()
+        model = provider.model
+        cfg = model.cfg
+        out["init"] = {
+            "s": time.perf_counter() - t0, "model": provider.model_id,
+            "bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "params": cfg.param_count(), "layers": cfg.n_layers,
+            "index_bytes_before": held}
+        queries = unique_queries(concurrency, 50_000)
+        chunk_texts = [synth_text(i) for i in range(n_chunk_texts)]
+        out["check"] = check_encoder(provider, queries, chunk_texts, depth)
+        timed = {}
+        for name, texts in (("queries", queries), ("chunks", chunk_texts)):
+            tokens = torch.from_numpy(provider.tokenize(texts)).to(device)
+            n_tok = tokens.numel()
+            ms = cuda_ms(lambda: model(tokens), 5) if cuda else None
+            timed[name] = {"batch": tokens.shape[0], "seq": tokens.shape[1],
+                           "ms": ms, "bound_ms": encoder_bound_ms(cfg, n_tok)}
+        # a backfill batch at its largest bucket: EMBEDDINGS_BATCH_SIZE texts
+        # of max_len tokens, beside the index
+        long_tokens = torch.randint(1, cfg.vocab_buckets, (
+            int(settings.embeddings_batch_size), cfg.max_len), device=device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model(long_tokens)
+        sync()
+        timed["backfill_batch"] = {
+            "batch": long_tokens.shape[0], "seq": long_tokens.shape[1],
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "bound_ms": encoder_bound_ms(cfg, long_tokens.numel()),
+            "held_bytes": torch.cuda.memory_allocated() if cuda else None,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+        del long_tokens
+        out["timed"] = timed
+
+        # 2. /retrieve with the encoder in the request
+        fused_scan.launches = 0
+        range_topk.launches = 0
+        dispatches.take()
+        settings.embeddings_provider = "qwen3"
+        t0 = time.perf_counter()
+        call_id, ids, texts = ingest_texts_as_call(
+            "smoke-qwen3-known", [QWEN3_KNOWN_TEXT.format(i=i, t=5200 + i, w=w)
+                                  for i, w in enumerate(QWEN3_WORDS)], index)
+        backfill = run_embedding_backfill(batch_size=int(settings.embeddings_batch_size),
+                                          call_id=call_id, source="chip_smoke")
+        ingest_s = time.perf_counter() - t0
+        if backfill.model_used != provider.model_id:
+            raise RuntimeError(f"the backfill embedded with {backfill.model_used}")
+        # the stored texts, embedded again as one query batch, against the rows
+        # the backfill wrote into the index: the diagonal is each known row's
+        # dense score, the rest its nearest rival among the known rows
+        with index.chunks.lock:
+            pos = torch.as_tensor(index.chunks.position_of(ids), dtype=torch.int64)
+            stored = index.chunks.emb[pos.to(device)].float()
+        scores = torch.from_numpy(provider.embed(texts).vectors).to(device) @ stored.T
+        rival = scores - 2.0 * torch.eye(len(ids), device=device)
+        out["known_rows"] = {"rows": len(ids), "ingest_backfill_s": ingest_s,
+                             "model": backfill.model_used,
+                             "own_score_min": float(scores.diagonal().min()),
+                             "rival_score_max": float(rival.max())}
+        port, stop = start_server()
+        ids_only = lambda salt: (lambda r: [
+            {"query": q, "return_style": "ids_only"}
+            for q in unique_queries(concurrency, salt + r)])
+        served = {}
+        for kind, salt in (("stub", 60_000), ("qwen3", 61_000)):
+            settings.embeddings_provider = kind
+            http_rounds(port, "/retrieve", ids_only(salt), 1, workdir)
+            events.enable()
+            try:
+                got = http_rounds(port, "/retrieve", ids_only(salt + 100), rounds, workdir)
+                embeds = [ev for ev in events.drain() if ev["tag"] == "retrieve.embed"]
+            finally:
+                events.disable()
+            served[kind] = {**round_stats(got),
+                            "embed_ms": float(np.mean([ev["s"] for ev in embeds])) * 1e3,
+                            "embed_calls": len(embeds),
+                            "batches": float(np.mean([ev["batch"] for ev in embeds]))}
+        settings.embeddings_provider = "qwen3"
+        known = http_rounds(port, "/retrieve", lambda r: [
+            {"query": t, "return_style": "ids_only", "debug": True} for t in texts],
+            1, workdir)
+        dense_first = [d["debug"]["lanes"]["chunks"]["dense"][0]["chunk_id"]
+                       if d["debug"]["lanes"]["chunks"].get("dense") else None
+                       for _s, _l, d in known[0][1]]
+        fused_first = [d["retrieved_ids"][:1] for _s, _l, d in known[0][1]]
+        if dense_first != ids:
+            raise RuntimeError(f"qwen3: known rows not first in the dense lane: "
+                               f"{list(zip(ids, dense_first))}; {out['known_rows']}")
+        if fused_first != [[f"chunk:{i}"] for i in ids]:
+            raise RuntimeError(f"qwen3: known rows not first: {fused_first}")
+        out["served"] = served
+        out["known_first"] = len(ids)
+        out["launches"] = {"fused_scan": fused_scan.launches,
+                           "tech_topk": range_topk.launches}
+        out["dispatched"] = sorted(set(dispatches.take()))
+        out["corpora"] = {name: {"rows": corpus.capacity, "dim": corpus.dim,
+                                 "lex_dim": corpus.lex_dim,
+                                 "slots": corpus.tech.shape[1],
+                                 "emb_dtype": corpus.emb_dtype}
+                          for name, corpus in (("chunks", index.chunks),
+                                               ("artifacts", index.artifacts))}
+
+        # 4 (served). (b)-traffic with the cross-encoder, beside the lexical
+        # provider (the stub embedder in both)
+        settings.embeddings_provider = "stub"
+        settings.reranker_params_path = str(RERANKER_ARTIFACT)
+        NeuralReranker.reset()
+        packs = lambda salt: (lambda r: [
+            {"query": q} for q in unique_queries(concurrency, salt + r)])
+        settings.rerank_enabled = True
+        reranked = {}
+        for provider_name, salt in (("lexical", 62_000), ("neural", 63_000)):
+            settings.rerank_provider = provider_name
+            http_rounds(port, "/retrieve", packs(salt), 1, workdir)
+            got = http_rounds(port, "/retrieve", packs(salt + 100), rounds, workdir)
+            notes = [d["notes"]["retrieval"] for _w, res in got for _s, _l, d in res]
+            if not all((n["reranked_from"] or 0) >= 1 for n in notes):
+                raise RuntimeError(f"rerank {provider_name}: an answer was not reranked")
+            reranked[provider_name] = {
+                **round_stats(got),
+                "rerank_ms": float(np.mean([n["timings_ms"]["rerank_ms"] for n in notes])),
+                "reranked_from": float(np.mean([n["reranked_from"] for n in notes]))}
+        out["rerank"] = reranked
+        out["reranker_device"] = str(NeuralReranker.shared().device)
+        stop()
+        stop = None
+    finally:
+        if stop is not None:
+            stop()
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        Qwen3EmbeddingProvider._instance = None
+        NeuralReranker.reset()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def paraphrase_mrr(embed):
+    """Dense-only MRR of the held-out paraphrase queries over their calls'
+    transcripts (``tests/integration/test_neural_provider.py``'s third
+    case): ``embed(texts)`` -> (n, dim) unit vectors."""
+    from cadence_rag_tpu_torch.evals.train_corpus import (
+        EVENTS, generate_calls, train_eval_split,
+    )
+
+    _, eval_combos = train_eval_split(seed=0)
+    docs, gold_sets, queries = [], [], []
+    rng = np.random.default_rng(3)
+    for call in generate_calls(eval_combos, seed=1):
+        phr = EVENTS[call.event]["summary"]
+        queries.append(phr[int(rng.integers(0, len(phr)))].format(svc=call.service))
+        gold = set()
+        for text in call.transcript:
+            if call.service in text:
+                gold.add(len(docs))
+            docs.append(text)
+        gold_sets.append(gold)
+    ranks = np.argsort(-(embed(queries) @ embed(docs).T), axis=1)
+    total = 0.0
+    for qi, gold in enumerate(gold_sets):
+        for rank, di in enumerate(ranks[qi], start=1):
+            if di in gold:
+                total += 1.0 / rank
+                break
+    return total / len(gold_sets)
+
+
+def gate_with_ids(device, **kwargs):
+    """The real gate, with the ids of every gold query's answer. The calls
+    it ingests start one second apart from a fixed date, as the parity
+    tests' clock has them: the tech lane ranks by the call's start second,
+    so two runs on the wall clock may rank differently. -> outcome"""
+    import itertools
+    from datetime import datetime, timedelta, timezone
+
+    from cadence_rag_tpu_torch.evals import metrics
+    from cadence_rag_tpu_torch.evals.real_gate import run_gate
+    from cadence_rag_tpu_torch.ingest import ingest
+
+    seen = {}
+    inner, clock = metrics.compute_metrics, ingest.now_utc
+    ticks = itertools.count()
+    start = datetime(2025, 6, 1, tzinfo=timezone.utc)
+
+    def recording(gold, results, **kw):
+        seen["results"] = results
+        return inner(gold, results, **kw)
+
+    metrics.compute_metrics = recording
+    ingest.now_utc = lambda: start + timedelta(seconds=next(ticks))
+    try:
+        outcome = run_gate(device=device, **kwargs)
+    finally:
+        metrics.compute_metrics, ingest.now_utc = inner, clock
+    return {**outcome, "results": seen["results"]}
+
+
+EMBED_SERVICE_TEXTS = (
+    "the ledger replica fell behind after the failover to the standby region",
+    "rolling back to v2.3.1 stopped the resets on billing-api within minutes",
+    "we should pin the client library and add retries to the export job",
+    "the downgrade fixed the failures on the auth gateway before the release",
+    "quota broker throttled the export runner overnight and the queue backed up",
+    "search tier latency spiked during the shard move and recovered after noon",
+)
+
+
+def run_embed_service(device, workdir):
+    """Step 5: ``serve/embed_service --provider neural`` in a child process on
+    the card; a backfill through the port's HTTP provider stores the
+    vectors the in-process provider gives. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import get_index, reset_index
+    from cadence_rag_tpu_torch.embed.pipeline import run_embedding_backfill
+    from cadence_rag_tpu_torch.models.embedder import NeuralEmbeddingProvider
+    from cadence_rag_tpu_torch.store.db import get_store, reset_store
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = child_env()
+    env.update(EMBEDDER_PARAMS_PATH=str(EMBEDDER_ARTIFACT), EMBEDDINGS_DIM="1024")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", CHILD, "cadence_rag_tpu_torch.serve.embed_service",
+         "--provider", "neural", "--device", str(device), "--host", "127.0.0.1",
+         "--port", str(port)], env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    saved = {k: getattr(settings, k) for k in (
+        "store_path", "embeddings_provider", "embeddings_base_url",
+        "embedder_params_path", "embeddings_dim")}
+    try:
+        def health():
+            if child.poll() is not None:
+                raise RuntimeError(f"embed_service exited: {child.stderr.read()[-2000:]}")
+            try:
+                return http_json(port, "GET", "/health", timeout=5)
+            except (urllib.error.URLError, ConnectionError, OSError):
+                return None
+        status, body = wait_for(health, "the embed service", timeout=300)
+        ready_s = time.perf_counter() - t0
+        settings.store_path = str(workdir / "embed_service.db")
+        settings.embeddings_provider = "http"
+        settings.embeddings_base_url = f"http://127.0.0.1:{port}"
+        settings.embeddings_dim = 1024
+        reset_store()
+        reset_index()
+        get_index(device)
+        call_id, ids, _texts = ingest_texts_as_call("smoke-embed-service",
+                                                  list(EMBED_SERVICE_TEXTS))
+        t0 = time.perf_counter()
+        summary = run_embedding_backfill(batch_size=4, call_id=call_id,
+                                         source="chip_smoke")
+        backfill_s = time.perf_counter() - t0
+        with get_store().read() as conn:
+            rows = conn.execute(
+                "SELECT chunk_id, text, embedding FROM chunks WHERE call_id = ? "
+                "ORDER BY chunk_id", (call_id,)).fetchall()
+        stored = np.stack([np.frombuffer(r["embedding"], np.float32) for r in rows])
+        settings.embedder_params_path = str(EMBEDDER_ARTIFACT)
+        local = NeuralEmbeddingProvider(device=device).embed([r["text"] for r in rows])
+        err = float(np.abs(stored - local.vectors).max())
+        if err > EMBED_SERVICE_ATOL or summary.model_used != local.model:
+            raise RuntimeError(f"embed service: stored vectors differ from the "
+                               f"in-process provider's by {err:.3g} "
+                               f"({summary.model_used} vs {local.model})")
+        return {"ready_s": ready_s, "health": body, "rows": len(rows),
+                "backfill_s": backfill_s, "model": summary.model_used,
+                "max_abs_err": err}
+    finally:
+        child.terminate()
+        try:
+            child.wait(30)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(30)
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        reset_index()
+
+
+def run_models_offline(device, workdir, cpu_gate=True):
+    """Steps 3, 4's gate and 5 of the models phase, each on a store and an
+    index of its own: the committed embedder loaded on ``device`` (its bag
+    regenerated there) against the CPU's, the real gate with
+    ``provider="neural"`` (with ``cpu_gate``, the first ``GATE_HEAD`` ids of
+    every answer the CPU run's), the paraphrase MRR against the stub's; the rerank gate
+    over ``two_register_v1.npz``; the /embed service. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+
+    saved_dim = settings.embeddings_dim
+    settings.embeddings_dim = 1024      # the committed embedder's width
+    try:
+        return _models_offline(device, workdir, cpu_gate)
+    finally:
+        settings.embeddings_dim = saved_dim
+
+
+def _models_offline(device, workdir, cpu_gate):
+    from cadence_rag_tpu_torch.embed.stub import HashEmbeddingProvider
+    from cadence_rag_tpu_torch.evals.rerank_gate import run_gate as rerank_gate
+    from cadence_rag_tpu_torch.models import embedder as emb
+
+    out = {}
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    model, cfg = emb.load_params(str(EMBEDDER_ARTIFACT), device)
+    if cuda:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ref, _cfg = emb.load_params(str(EMBEDDER_ARTIFACT), "cpu")
+    texts = list(EMBED_SERVICE_TEXTS)
+    tokens = torch.from_numpy(emb.batch_tokenize(texts, cfg))
+    out["embedder"] = {
+        "load_s": load_s, "device": str(model.device),
+        "bag_max_abs_err": float((model.bag_emb.cpu() - ref.bag_emb).abs().max()),
+        "max_abs_err": float((model(tokens).cpu() - ref(tokens)).abs().max())}
+    embed_neural = lambda ts: model(torch.from_numpy(emb.batch_tokenize(ts, cfg))).cpu().numpy()
+    stub = HashEmbeddingProvider()
+    embed_stub = lambda ts: np.asarray(stub.embed(ts).vectors, np.float32)
+    out["paraphrase_mrr"] = {"neural": paraphrase_mrr(embed_neural),
+                             "stub": paraphrase_mrr(embed_stub)}
+    if out["paraphrase_mrr"]["neural"] <= out["paraphrase_mrr"]["stub"] + 0.05:
+        raise RuntimeError(f"paraphrase MRR: {out['paraphrase_mrr']}")
+    del model, ref
+
+    gates = {"card": gate_with_ids(device, provider="neural",
+                                   embedder_params_path=str(EMBEDDER_ARTIFACT))}
+    card = gates["card"]
+    low = {k: card["metrics"][k] for k, floor in GATE_FLOORS.items()
+           if card["metrics"][k] < floor}
+    if low or card["failures"]:
+        raise RuntimeError(f"neural real gate under its floors: {low} {card['failures']}")
+    out["gate_neural"] = {"metrics": card["metrics"]}
+    if cpu_gate:
+        gates["cpu"] = gate_with_ids("cpu", provider="neural",
+                                     embedder_params_path=str(EMBEDDER_ARTIFACT))
+        cpu, got = gates["cpu"]["results"], card["results"]
+        heads = [q for q in cpu if got.get(q, [])[:GATE_HEAD] != cpu[q][:GATE_HEAD]]
+        if heads or set(cpu) != set(got):
+            raise RuntimeError(f"the neural real gate's first {GATE_HEAD} ids on the "
+                               f"card are not the CPU's in {heads}")
+        out["gate_neural"].update(
+            answers=len(cpu), same_answers=sum(got[q] == cpu[q] for q in cpu),
+            cpu_metrics=gates["cpu"]["metrics"])
+
+    rr = rerank_gate(device=device, params_path=str(RERANKER_ARTIFACT))
+    if rr["failures"]:
+        raise RuntimeError(f"rerank gate: {rr['failures']}")
+    out["rerank_gate"] = {k: v for k, v in rr.items() if k != "workdir"}
+    out["embed_service"] = run_embed_service(device, workdir)
+    return out
+
+
 def write_details(path, details):
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -2996,8 +3494,47 @@ def main(argv=None) -> int:
         f"and K3 on the {gm['kernels'][0]['rows']}-row tensors |err| "
         f"{gm['kernels'][0]['max_abs_err']:.3g}; launches {life['launches']}")
 
+    models = serve["models"]
+    if min(models["launches"].values()) <= 0:
+        raise RuntimeError(f"qwen3 /retrieve launched no K1 or K3: {models['launches']}")
+    enc, mcheck, timed = models["init"], models["check"], models["timed"]
+    log(f"models qwen3 ({smi}): {enc['model']} made on the card beside the served "
+        f"index ({gib(enc['index_bytes_before']):.2f} GiB held before it) in "
+        f"{enc['s']:.1f} s, {enc['bytes'] / 1e9:.2f} GB, {enc['params'] / 1e9:.3f} G "
+        f"params; card path against its plain path at depth {mcheck['depth']}: "
+        + "; ".join(f"{name} {mcheck[name]['shape']} |err| "
+                    f"{mcheck[name]['max_abs_err']:.3g} min cosine "
+                    f"{mcheck[name]['min_cos']:.6f}" for name in ("queries", "chunks"))
+        + f"; all {enc['layers']} layers: "
+        + "; ".join(f"{name} batch {t['batch']} x seq {t['seq']} "
+                    f"{t['ms']:.1f} ms (bound {t['bound_ms']:.1f} ms)"
+                    for name, t in timed.items())
+        + f"; the backfill batch's peak {gib(timed['backfill_batch']['peak_bytes']):.2f} "
+        f"GiB over {gib(timed['backfill_batch']['held_bytes']):.2f} GiB held")
+    ms = models["served"]
+    log(f"models co-resident /retrieve ({smi}): 128 concurrent ids_only over HTTP, "
+        + "; ".join(f"EMBEDDINGS_PROVIDER={kind} p50 {ms[kind]['p50_ms']:.1f} ms p99 "
+                    f"{ms[kind]['p99_ms']:.1f} ms {ms[kind]['qps']:.0f} QPS, "
+                    f"retrieve.embed {ms[kind]['embed_ms']:.2f} ms a dispatch group "
+                    f"({ms[kind]['embed_calls']} groups, mean batch "
+                    f"{ms[kind]['batches']:.1f})" for kind in ("stub", "qwen3"))
+        + f"; {models['known_first']} known rows ingested and embedded by the encoder "
+        f"through the backfill ({models['known_rows']['ingest_backfill_s']:.2f} s; "
+        f"dense score of each own row >= {models['known_rows']['own_score_min']:.4f}, "
+        f"of a rival known row <= {models['known_rows']['rival_score_max']:.4f}), "
+        f"each first in the dense lane and fused; launches {models['launches']}")
+    mr = models["rerank"]
+    log(f"models neural rerank ({smi}): (b) packs over HTTP, 128 concurrent, "
+        f"RERANK_ENABLED on {models['reranker_device']}: "
+        + "; ".join(f"RERANK_PROVIDER={name} p50 {mr[name]['p50_ms']:.1f} ms "
+                    f"{mr[name]['qps']:.0f} QPS, rerank_ms {mr[name]['rerank_ms']:.2f} "
+                    f"a request (top {mr[name]['reranked_from']:.0f})"
+                    for name in ("lexical", "neural")))
+
     details["served_shapes"] = check_served_shapes(
         device, serve["dispatched"], serve["corpora"], seed=20)
+    details["models_shapes"] = check_served_shapes(
+        device, models["dispatched"], models["corpora"], seed=110)
     # the writes phase's shapes at the compacted, ragged row counts
     details["written_shapes"] = check_served_shapes(
         device, writes["dispatched"], writes["corpora"], seed=60)
@@ -3009,7 +3546,39 @@ def main(argv=None) -> int:
     k1_err = max(details["k1"]["max_abs_err"], details["k1_ragged_int8"]["max_abs_err"],
                  details["served_shapes"]["k1_max_abs_err"],
                  details["written_shapes"]["k1_max_abs_err"],
+                 details["models_shapes"]["k1_max_abs_err"],
                  *(r["max_abs_err"] for r in on_index))
+
+    import tempfile
+
+    offline_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_models_"))
+    try:
+        details["models_offline"] = off = run_models_offline(device, offline_dir)
+    finally:
+        shutil.rmtree(offline_dir, ignore_errors=True)
+    eb, pm, gn, rg, es = (off["embedder"], off["paraphrase_mrr"], off["gate_neural"],
+                          off["rerank_gate"], off["embed_service"])
+    log(f"models neural embedder ({smi}): tuned_small_v1.npz loaded on "
+        f"{eb['device']} in {eb['load_s']:.2f} s, its bag regenerated there (|err| "
+        f"{eb['bag_max_abs_err']:.3g} against the CPU's, vectors {eb['max_abs_err']:.3g}); "
+        f"real gate with provider=neural "
+        + ", ".join(f"{k} {gn['metrics'][k]:.4f} (floor {floor}; CPU "
+                    f"{gn['cpu_metrics'][k]:.4f})" for k, floor in GATE_FLOORS.items())
+        + f", the first {GATE_HEAD} ids of every answer the CPU's, "
+        f"{gn['same_answers']} of {gn['answers']} answers identical; dense-only "
+        f"paraphrase MRR "
+        f"{pm['neural']:.4f} against the stub's {pm['stub']:.4f}")
+    log(f"models rerank gate ({smi}), two_register_v1.npz on the card: neural_raw "
+        f"MRR {rg['neural_mrr']:.4f}, hybrid {rg['hybrid_mrr']:.4f}, lexical "
+        f"{rg['lexical_mrr']:.4f}, shuffled {rg['shuffled_mrr']:.4f}; e2e through "
+        f"/retrieve neural_raw {rg['e2e_neural_mrr']:.4f} against lexical "
+        f"{rg['e2e_lexical_mrr']:.4f}; fixture gate with neural_raw "
+        + ", ".join(f"{k} {rg['fixture_metrics'][k]:.4f} (floor {floor})"
+                    for k, floor in GATE_FLOORS.items()))
+    log(f"models /embed ({smi}): serve/embed_service --provider neural in a child "
+        f"process on the card, ready in {es['ready_s']:.1f} s; a backfill of "
+        f"{es['rows']} rows through the port's HTTP provider {es['backfill_s']:.2f} s, "
+        f"stored vectors against the in-process provider's |err| {es['max_abs_err']:.3g}")
 
     fused_scan.launches = 0
     range_topk.launches = 0
@@ -3130,10 +3699,12 @@ def main(argv=None) -> int:
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
          "launches": (serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"]
-                      + lifecycle_launches["fused_scan"]),
+                      + lifecycle_launches["fused_scan"]
+                      + models["launches"]["fused_scan"]),
          "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
                                "writes": writes["launches"]["fused_scan"],
-                               "lifecycle": lifecycle_launches["fused_scan"]},
+                               "lifecycle": lifecycle_launches["fused_scan"],
+                               "models": models["launches"]["fused_scan"]},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
@@ -3141,10 +3712,12 @@ def main(argv=None) -> int:
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
          "launches": (serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"]
-                      + lifecycle_launches["tech_topk"]),
+                      + lifecycle_launches["tech_topk"]
+                      + models["launches"]["tech_topk"]),
          "launches_by_phase": {"serve": serve["launches"]["tech_topk"],
                                "writes": writes["launches"]["tech_topk"],
-                               "lifecycle": lifecycle_launches["tech_topk"]},
+                               "lifecycle": lifecycle_launches["tech_topk"],
+                               "models": models["launches"]["tech_topk"]},
          "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},

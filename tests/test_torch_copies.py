@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from cadence_rag_tpu import config as jconfig
 from cadence_rag_tpu.embed.stub import HashEmbeddingProvider as JaxStub
@@ -257,6 +258,7 @@ VERBATIM = [
     "evals/metrics.py", "evals/fixtures.py", "serve/metrics.py",
     "ingest/adapters.py", "ingest/docformats.py", "scripts/__init__.py",
     "evals/data/gold_sample.jsonl", "evals/data/results_sample.jsonl",
+    "models/tokenizer.py", "evals/train_corpus.py",
 ]
 # copies that differ from the JAX package's file only where a line names the
 # package (a usage line) or the hardware: {path: lines that may differ}
@@ -404,10 +406,23 @@ def test_embed_facade_matches(monkeypatch, cache):
         tprov.embed_texts(["  "])
     for msg in ("max batch size <= 8", "Maximum batch size is 16", "nope", ""):
         assert tlimit(msg) == jlimit(msg)
-    for kind in tprov.NOT_PORTED_PROVIDERS:
+    # the in-process embedders are ported: the registry builds them on the
+    # device the entry point named, as the JAX package's registry does
+    from cadence_rag_tpu_torch import device
+    from cadence_rag_tpu_torch.models.embedder import NeuralEmbeddingProvider
+    from cadence_rag_tpu_torch.models.qwen3 import Qwen3EmbeddingProvider
+
+    monkeypatch.setattr(device, "_models_device", torch.device("cpu"))
+    monkeypatch.setattr(tconfig.settings, "qwen3_preset", "tiny")
+    for kind, cls, dim in (("neural", NeuralEmbeddingProvider, 64),
+                           ("qwen3", Qwen3EmbeddingProvider, 32)):
+        monkeypatch.setattr(cls, "_instance", None)
         monkeypatch.setattr(tconfig.settings, "embeddings_provider", kind)
-        with pytest.raises(RuntimeError, match="not ported"):
-            tprov.get_provider()
+        monkeypatch.setattr(tconfig.settings, "embeddings_dim", dim)
+        provider = tprov.get_provider()
+        assert isinstance(provider, cls) and provider is tprov.get_provider()
+        assert provider.device == torch.device("cpu")
+        assert tprov.embed_texts(texts[:3]).vectors.shape == (3, dim)
     tprov.reset_embed_cache()
     jprov.reset_embed_cache()
 

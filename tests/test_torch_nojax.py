@@ -159,7 +159,7 @@ for info in pkgutil.walk_packages(cadence_rag_tpu_torch.__path__,
 
 import tempfile
 from cadence_rag_tpu_torch.config import settings
-settings.embeddings_dim = 64
+settings.embeddings_dim = 32             # the tiny Qwen3 preset's width
 settings.lexical_dim = 1024
 settings.index_initial_capacity = 256
 settings.store_sync_interval_s = 0.0
@@ -180,8 +180,13 @@ resp = client.post("/retrieve", json={"query": "what caused the ECONNRESET error
 import chip_smoke
 serve = chip_smoke.run_serve("cpu", 5000, 600, concurrency=16, cold_rounds=1,
                              warm_rounds=1, bench_iters=1, profile=False,
-                             window_ms=50, write_rounds=30, lifecycle_rounds=2)
+                             window_ms=50, write_rounds=30, lifecycle_rounds=2,
+                             models_preset="tiny")
 writes = serve["writes"]
+models = serve["models"]
+offline = chip_smoke.run_models_offline(
+    __import__("torch").device("cpu"), __import__("pathlib").Path(tempfile.mkdtemp()),
+    cpu_gate=False)
 life = serve["lifecycle"]
 int8 = chip_smoke.run_int8_served("cpu", 3000, 300, 8, 4)
 vocab = chip_smoke.run_vocab("cpu", 3000, 300, 256, 8, 16)
@@ -221,7 +226,18 @@ print(json.dumps({"modules": len(modules), "loaded": loaded,
                   "cold_moved": [cold["batches"][n]["ids_moved"]
                                  for n in ("unscoped", "scoped")],
                   "cold_blocks": [r["rows"] for r in cold["kernels"]],
-                  "grown": [grown["old_capacity"], grown["capacity"]]}))
+                  "grown": [grown["old_capacity"], grown["capacity"]],
+                  "qwen3": [models["init"]["model"], models["known_first"],
+                            sorted(models["served"]), sorted(models["rerank"]),
+                            models["check"]["queries"]["max_abs_err"]],
+                  "qwen3_launches": models["launches"],
+                  "neural_gate": offline["gate_neural"]["metrics"],
+                  "paraphrase": offline["paraphrase_mrr"],
+                  "rerank_gate": [offline["rerank_gate"][k] for k in
+                                  ("neural_mrr", "lexical_mrr", "failures")],
+                  "embed_service": [offline["embed_service"][k]
+                                    for k in ("rows", "model", "max_abs_err")]
+                                   + [chip_smoke.EMBED_SERVICE_ATOL]}))
 """
 
 
@@ -271,3 +287,21 @@ def test_port_serves_without_jax():
     assert out["cold"] == [2048, 2956, 3, 65, 8, 3]
     assert out["cold_moved"] == [0, 0] and out["cold_blocks"] == [1024, 908]
     assert out["grown"] == [8192, 16384]
+    # the models phase: the tiny Qwen3 encoder beside the served index, its
+    # known rows first, stub and qwen3 rounds, lexical and neural reranking;
+    # the neural embedder's gate, paraphrase MRR, the rerank gate and the
+    # /embed service (a child process) on their own stores
+    model, known, served, reranked, err = out["qwen3"]
+    assert model == "qwen3-shaped-64d2L-synthetic" and known == 16
+    assert served == ["qwen3", "stub"] and reranked == ["lexical", "neural"]
+    assert err == 0.0                   # the CPU's default path is the plain one
+    assert out["qwen3_launches"] == {"fused_scan": 0, "tech_topk": 0}
+    assert out["neural_gate"]["mrr"] >= 0.60 and out["neural_gate"]["recall@20"] >= 0.80
+    assert out["paraphrase"]["neural"] > out["paraphrase"]["stub"] + 0.05
+    neural_mrr, lexical_mrr, failures = out["rerank_gate"]
+    assert failures == [] and neural_mrr > lexical_mrr + 0.10
+    # the service embeds the backfill's batches of 4 and 2, the in-process
+    # provider all 6 at once: the CPU's f32 GEMMs may sum in another order
+    rows, model, err, atol = out["embed_service"]
+    assert rows == 6 and model == "cadence-neural-embedder-128d2L-tuned"
+    assert err <= atol == 1e-5

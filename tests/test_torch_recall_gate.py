@@ -99,7 +99,8 @@ def test_array_function_matches_jax_modes(docs, mode, density, shape):
 def test_ann_mode_meets_the_jax_floors(n, density, shape):
     """tests/kernels/test_ann_recall.py's floors, through the port's lane."""
     result = gate.measure_recall(n=n, n_queries=16, k=10, mode="ann",
-                                 density=density, mask_shape=shape)
+                                 density=density, mask_shape=shape,
+                                 device="cpu")
     assert result["recall_at_k"] >= 0.9, result
     assert set(result) == {"n", "k", "queries", "mode", "ef_search",
                            "recall_target", "density", "mask_shape",
@@ -113,14 +114,15 @@ def test_pallas_mode_runs_at_the_gate_default_n():
     e = jnp.zeros((1500, 32), dtype=jnp.bfloat16)
     with pytest.raises(AssertionError):
         pallas_candidates(jnp.zeros((1, 32)), e, jnp.ones((1, 1500), bool))
-    result = gate.measure_recall(n=100_000, n_queries=8, k=10, mode="pallas")
+    result = gate.measure_recall(n=100_000, n_queries=8, k=10, mode="pallas",
+                                 device="cpu")
     assert result["recall_at_k"] >= 0.95, result
 
 
 def test_sweep_rows_keep_their_mask():
     rows = run_sweep(n=2048, batch=4, k=5, densities=[0.1, 1.0],
                      targets=[0.9, 0.95], mask_shapes=["contiguous", "random"],
-                     rounds=1)
+                     rounds=1, device="cpu")
     assert [(r["mask"], r["density"], r["recall_target"]) for r in rows] == [
         (s, d, t) for s in ("contiguous", "random") for d in (0.1, 1.0)
         for t in (0.9, 0.95)]

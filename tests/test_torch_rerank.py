@@ -1,18 +1,19 @@
-"""The lexical reranker and the eval CLIs, JAX package vs port, on the CPU.
+"""The rerank lane and the eval CLIs, JAX package vs port, on the CPU.
 
-``tests/integration/test_rerank.py`` and ``tests/integration/test_eval_gate.py``
-run against the port as they stand (``torch_parity.mirror_tests``; the real
-gate is asked for the CPU). The neural provider's test does not apply: the
-cross-encoder is not ported, and ``test_neural_providers_raise`` holds what
-replaces it. Then the same corpus and requests go through both packages
-with ``RERANK_ENABLED``: responses identical (debug lane scores within 1e-5),
-``_lexical_scores`` and ``prior_for_texts`` equal within 1e-5 on the same
-seeded inputs, and the real gate's metrics identical with
-``rerank_provider="lexical"``.
+``tests/integration/test_rerank.py`` (its neural provider's case included)
+and ``tests/integration/test_eval_gate.py`` run against the port as they
+stand (``torch_parity.mirror_tests``; the real gate is asked for the CPU).
+Then the same corpus and requests go through both packages with
+``RERANK_ENABLED``: responses identical (debug lane scores within 1e-5),
+with the lexical provider and with both neural ones over the committed
+``two_register_v1.npz``; ``_lexical_scores`` and ``prior_for_texts`` equal
+within 1e-5 on the same seeded inputs; the real gate's metrics identical
+with each provider.
 """
 
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ from torch_parity import (
 )
 
 SCORE_ATOL = 1e-5
+TWO_REGISTER = str(Path(__file__).resolve().parent.parent / "artifacts" /
+                   "reranker" / "two_register_v1.npz")
 GATE_ON_CPU = ((r"\brun_gate\(", 'run_gate(device="cpu", '),)
 
 
@@ -40,7 +43,6 @@ def port_tmp_store(port_store):
 
 
 mirror_tests(globals(), "rerank", "integration/test_rerank.py",
-             drop={"TestNeuralRerank": ["test_neural_provider_runs"]},
              rewrites=GATE_ON_CPU)
 mirror_tests(globals(), "eval_gate", "integration/test_eval_gate.py",
              rewrites=GATE_ON_CPU)
@@ -55,23 +57,44 @@ def test_the_mirrored_tests_ran_against_the_port():
 
 
 @pytest.mark.parametrize("provider", ["neural", "neural_raw"])
-def test_neural_providers_raise(port_store, provider, monkeypatch):
-    """The cross-encoder is not ported: both neural providers raise, naming
-    ROADMAP item 6, in the reranker, in the engine, at startup and in the
-    gate; nothing of ``models/`` is imported."""
-    ingest_corpus(PORT)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        PORT.rerank.rerank("q", [(1, {"lex"}, 0.5)], "chunks",
-                           np.zeros(1024, np.int64), 1, topk=5, provider=provider)
-    monkeypatch.setattr(port_store, "rerank_enabled", True)
-    monkeypatch.setattr(port_store, "rerank_provider", provider)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PORT.retrieve.retrieve_evidence(PORT.request({"query": "ECONNRESET"}))
-    with pytest.raises(RuntimeError, match=f"RERANK_PROVIDER={provider}.*item 6"):
-        PORT.api.startup("cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PORT.real_gate.run_gate(device="cpu", rerank_provider=provider)
-    assert "cadence_rag_tpu_torch.models" not in sys.modules
+def test_neural_providers_raise(port_store, set_both, provider, monkeypatch):
+    """The cross-encoder is ported, so neither neural provider raises any
+    more: with the committed ``two_register_v1.npz`` both rerank as the JAX
+    package's do, in ``rerank`` (the same order), in the engine (the same
+    responses), at startup and in the real gate (the same metrics)."""
+    from cadence_rag_tpu.models.reranker import NeuralReranker as JaxReranker
+    from cadence_rag_tpu_torch.models.reranker import NeuralReranker
+
+    for pkg in BOTH:
+        monkeypatch.setattr(pkg.ingest, "now_utc", fake_clock())
+    calls = {pkg.root: ingest_corpus(pkg) for pkg in BOTH}
+    set_both("reranker_params_path", TWO_REGISTER)
+    for cls in (JaxReranker, NeuralReranker):
+        monkeypatch.setattr(cls, "_instance", None)
+    ranked = [(i, {"lex"}, 1.0 / (60 + i)) for i in range(1, 12)]
+    doc_freq = np.ones(1024, np.int64)
+    out = [pkg.rerank.rerank("ECONNRESET object store gateway", list(ranked),
+                             "chunks", doc_freq, 11, topk=9, provider=provider)
+           for pkg in BOTH]
+    assert out[0] == out[1] and out[1][9:] == ranked[9:]
+    set_both("rerank_enabled", True)
+    set_both("rerank_provider", provider)
+    for name in ("pack", "debug", "limits", "budget"):
+        body = request_bodies(calls[JAX.root])[name]
+        got = PORT.retrieve.retrieve_evidence(PORT.request(body))
+        want = JAX.retrieve.retrieve_evidence(JAX.request(body))
+        assert_same_response(got, want)
+        assert got["notes"]["retrieval"]["reranked_from"] >= 1, name
+    PORT.api.startup("cpu")
+    assert NeuralReranker.shared().device.type == "cpu"
+    gates = {}
+    for pkg in BOTH:
+        monkeypatch.setattr(pkg.ingest, "now_utc", fake_clock())
+        kwargs = {"device": "cpu"} if pkg is PORT else {}
+        gates[pkg.root] = pkg.real_gate.run_gate(
+            rerank_provider=provider, reranker_params_path=TWO_REGISTER, **kwargs)
+    assert not gates[PORT.root]["failures"]
+    assert gates[PORT.root]["metrics"] == gates[JAX.root]["metrics"]
 
 
 def test_reranked_responses_match(port_store, set_both):
@@ -151,8 +174,7 @@ def test_rerank_keeps_the_rrf_ladder_and_the_tail(port_store):
 
 def test_real_gate_with_lexical_rerank_matches(port_store, tmp_path, monkeypatch):
     """The real gate with ``rerank_provider="lexical"``: the port passes its
-    floors with the JAX package's metrics (the JAX gate loads its neural
-    reranker class for any provider; the port imports none)."""
+    floors with the JAX package's metrics."""
     outcomes = {}
     for pkg in BOTH:
         monkeypatch.setattr(sys.modules[f"{pkg.root}.ingest.ingest"], "now_utc",

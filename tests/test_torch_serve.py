@@ -5,13 +5,15 @@ Both packages serve through their in-process router clients
 ingest requests and answer the same reads and retrievals; one test drives
 the port's aiohttp server over a real socket with the micro-batcher on. The
 port's ``startup`` must raise for every setting whose feature is not ported,
-and for a card that is not there; no route is left unserved: the routes
+and for a card that is not there, and start and serve with the in-process
+models' settings; no route is left unserved: the routes
 that once answered "not ported" answer as the JAX package's do.
 """
 
 import asyncio
 import sqlite3
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,17 +39,21 @@ NOT_PORTED = [
     ("GET", "/ingest/jobs/00000000-0000-4000-8000-000000000001"),
     ("DELETE", "/calls/00000000-0000-4000-8000-000000000001"),
 ]
-# (settings, a word of the message, the ROADMAP item it names)
+TWO_REGISTER = str(Path(__file__).resolve().parent.parent / "artifacts" /
+                   "reranker" / "two_register_v1.npz")
+# (settings, a word of the message, the ROADMAP item it names); item 6's
+# settings (the in-process models) are ported and now start and serve
 UNPORTED_SETTINGS = [
-    ({"rerank_enabled": True, "rerank_provider": "neural"},
-     "RERANK_PROVIDER=neural", "item 6"),
-    ({"rerank_enabled": True, "rerank_provider": "neural_raw"},
-     "RERANK_PROVIDER=neural_raw", "item 6"),
+    ({"rerank_enabled": True, "rerank_provider": "neural",
+      "reranker_params_path": TWO_REGISTER}, "RERANK_PROVIDER=neural", "item 6"),
+    ({"rerank_enabled": True, "rerank_provider": "neural_raw",
+      "reranker_params_path": TWO_REGISTER}, "RERANK_PROVIDER=neural_raw", "item 6"),
     ({"dist_coordinator": "localhost:1234"}, "DIST_COORDINATOR", "item 7"),
     ({"mesh_shape": "data:4"}, "MESH_SHAPE", "item 7"),
     ({"profiler_port": 9999}, "PROFILER_PORT", "item 2"),
     ({"embeddings_provider": "neural"}, "EMBEDDINGS_PROVIDER", "item 6"),
-    ({"embeddings_provider": "qwen3"}, "EMBEDDINGS_PROVIDER", "item 6"),
+    ({"embeddings_provider": "qwen3", "qwen3_preset": "tiny", "embeddings_dim": 32},
+     "EMBEDDINGS_PROVIDER", "item 6"),
 ]
 
 
@@ -198,13 +204,39 @@ def test_unported_routes_say_so(clients, method, path):
 
 @pytest.mark.parametrize("values,word,item", UNPORTED_SETTINGS)
 def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, word, item):
+    """Startup raises for a setting whose feature is not ported, naming its
+    ROADMAP item. Item 6's settings (the in-process embedders and the
+    cross-encoder) are ported: startup takes them, and the engine serves
+    with them on the device startup named."""
+    from cadence_rag_tpu_torch.models.embedder import NeuralEmbeddingProvider
+    from cadence_rag_tpu_torch.models.qwen3 import Qwen3EmbeddingProvider
+    from cadence_rag_tpu_torch.models.reranker import NeuralReranker
     from cadence_rag_tpu_torch.serve.api import startup
+    from torch_parity import ingest_corpus
 
     monkeypatch.setattr(PORT.settings, "store_sync_interval_s", 0.0)
     for name, value in values.items():
         monkeypatch.setattr(PORT.settings, name, value)
-    with pytest.raises(RuntimeError, match=f"{word}.*ROADMAP Queue 1 {item}"):
-        startup("cpu")
+    if item != "item 6":
+        with pytest.raises(RuntimeError, match=f"{word}.*ROADMAP Queue 1 {item}"):
+            startup("cpu")
+        return
+    for cls in (NeuralEmbeddingProvider, Qwen3EmbeddingProvider, NeuralReranker):
+        monkeypatch.setattr(cls, "_instance", None)
+    PORT.index.reset_index()            # an index of this setting's width
+    startup("cpu")
+    ingest_corpus(PORT)
+    resp = PORT.retrieve.retrieve_evidence(
+        PORT.request({"query": "ECONNRESET object store errors"}))
+    notes = resp["notes"]["retrieval"]
+    assert resp["quotes"] and notes["dense_error"] is None
+    if "rerank_provider" in values:
+        assert notes["reranked_from"] >= 1
+        assert NeuralReranker.shared().device == torch.device("cpu")
+    else:
+        prefix = {"neural": "cadence-neural-embedder-256d4L",
+                  "qwen3": "qwen3-shaped-64d2L"}[values["embeddings_provider"]]
+        assert notes["dense_model_id"].startswith(prefix)
 
 
 def test_startup_raises_for_a_store_with_a_vocab_head(port_store, monkeypatch):

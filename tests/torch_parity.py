@@ -26,6 +26,7 @@ import pytest
 
 from cadence_rag_tpu.config import settings as jax_settings
 from cadence_rag_tpu_torch.config import settings as port_settings
+from cadence_rag_tpu_torch.device import set_models_device
 from cadence_rag_tpu_torch.engine import planner as PORT_PLANNER
 
 DEBUG_SCORE_ATOL = 1e-5    # lane scores: f32 sums taken in another order
@@ -142,8 +143,9 @@ def fake_clock(start=datetime(2025, 6, 1, tzinfo=timezone.utc)):
 def port_store(tmp_store, tmp_path, monkeypatch):
     """conftest's store and index for the JAX package, and the same for the
     port: its settings take the JAX package's values and a store file of
-    its own, and its index is created on the CPU. Each package's ingest
-    reads a clock of its own that starts at the same second."""
+    its own, and its index and in-process models live on the CPU. Each
+    package's ingest reads a clock of its own that starts at the same
+    second."""
     for pkg in BOTH:
         monkeypatch.setattr(pkg.ingest, "now_utc", fake_clock())
     for field in dataclasses.fields(port_settings):
@@ -158,6 +160,8 @@ def port_store(tmp_store, tmp_path, monkeypatch):
 
     reset()
     PORT.index.get_index("cpu")
+    # the in-process models (models/*) live beside the index
+    set_models_device("cpu")
     yield port_settings
     reset()
 
