@@ -31,6 +31,16 @@ def resolve_device(device: DeviceLike) -> torch.device:
     return dev
 
 
+def pin_f32_matmul(device: torch.device) -> None:
+    """On CUDA, f32 matmuls in full precision (``allow_tf32`` off): the
+    training losses' ``za @ zp.T``, the plain paths and the exact scans are
+    f32 products, and a process that had asked for TF32 would round their
+    operands to 10 mantissa bits. The entry points that compute them call
+    this (``serve.api.startup`` pins the same flag)."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 # -- the device of the in-process models ---------------------------------------
 # The models (models/*) serve inside a process whose entry point named a
 # device: the server's ``startup(device)``, the embed service's

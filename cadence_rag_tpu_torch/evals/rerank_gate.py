@@ -1,18 +1,25 @@
 """Rerank gate: a cross-encoder tuned on RELEVANCE labels must beat the
 lexical rescorer at reordering paraphrase candidates.
 
-Counterpart of ``cadence_rag_tpu/evals/rerank_gate.py``, evaluation half:
-it evaluates a trained artifact (``params_path``, e.g. the committed
-``artifacts/reranker/two_register_v1.npz``) on the device the caller names.
-Training one (no ``params_path``) waits for the training item (ROADMAP Queue
-1 item 6b) and raises.
+Counterpart of ``cadence_rag_tpu/evals/rerank_gate.py``, on the device the
+caller names (the card unless asked for the CPU). It trains a cross-encoder,
+or evaluates a trained artifact (``params_path``, e.g. the committed
+``artifacts/reranker/two_register_v1.npz``).
 
 The gate:
 
 1. builds a disposable store + index from the paraphrase corpus
    (train-combo calls with summaries; HELD-OUT eval-combo calls as
    transcripts only, ``evals/train_corpus.py``);
-2. evaluates on the HELD-OUT combos through the PRODUCTION rerank
+2. without ``params_path``, builds (query, relevant_chunk,
+   irrelevant_chunk) triples from the TRAINING combos — positives are the
+   gold call's service-bearing transcript chunks, negatives are
+   same-service/other-event and same-event/other-service chunks — and
+   fine-tunes the cross-encoder (``scripts/train_reranker.py``). The
+   two-register recipe (the default) mixes in lexical-teacher triples from
+   the same store and trains a residual over the frozen lexical prior
+   (``attach_priors``), so exact-token order survives training;
+3. evaluates on the HELD-OUT combos through the PRODUCTION rerank
    providers (``engine/rerank.py``): candidates shuffled, then reordered by
    ``lexical`` vs ``neural_raw`` vs ``neural``; MRR of the first gold chunk;
    the same through ``/retrieve`` with ``RERANK_ENABLED=1`` (e2e);
@@ -21,8 +28,9 @@ The gate:
    a margin and clear an absolute floor, and the e2e neural MRR must not
    fall below the lexical one.
 
-Usage: python -m cadence_rag_tpu_torch.evals.rerank_gate
-       --params artifacts/reranker/two_register_v1.npz [--device cuda|cpu]
+Usage: python -m cadence_rag_tpu_torch.evals.rerank_gate [--steps 800]
+       [--params artifacts/reranker/two_register_v1.npz] [--save PATH]
+       [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import shutil
 import sys
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,17 +51,55 @@ from ..logging_utils import configure_logging, get_logger
 
 logger = get_logger(__name__)
 
-TRAINING_NOT_PORTED = (
-    "rerank_gate without params_path trains a reranker: training "
-    "(scripts/train_reranker.py) is not ported yet (ROADMAP Queue 1 item "
-    "6b); pass params_path to evaluate a trained artifact"
-)
-
-
 def _chunks_by_call(conn) -> List[Dict]:
     return [dict(r) for r in conn.execute(
         "SELECT chunk_id, call_id, text FROM chunks"
     ).fetchall()]
+
+
+def build_relevance_triples(
+    calls, call_ids: Dict[str, str], rows: List[Dict],
+    n_neg_per_pos: int = 3, seed: int = 0,
+) -> List[Tuple[str, str, str]]:
+    """(query, relevant_text, irrelevant_text) triples labeled by the
+    paraphrase corpus STRUCTURE (not by any teacher score)."""
+    from .train_corpus import EVENTS
+
+    rng = np.random.default_rng(seed)
+    by_call: Dict[str, List[Dict]] = {}
+    for row in rows:
+        by_call.setdefault(row["call_id"], []).append(row)
+
+    triples: List[Tuple[str, str, str]] = []
+    call_list = [c for c in calls if call_ids.get(c.external_id) in by_call]
+    for call in call_list:
+        cid = call_ids[call.external_id]
+        gold = [r["text"] for r in by_call[cid] if call.service in r["text"]]
+        if not gold:
+            continue
+        same_svc = [
+            r["text"]
+            for other in call_list
+            if other.service == call.service and other.event != call.event
+            for r in by_call[call_ids[other.external_id]]
+        ]
+        same_event = [
+            r["text"]
+            for other in call_list
+            if other.event == call.event and other.service != call.service
+            for r in by_call[call_ids[other.external_id]]
+        ]
+        negatives = same_svc + same_event
+        if not negatives:
+            continue
+        for template in EVENTS[call.event]["summary"]:
+            query = template.format(svc=call.service)
+            for pos_text in gold:
+                for _ in range(n_neg_per_pos):
+                    neg = negatives[int(rng.integers(0, len(negatives)))]
+                    triples.append((query, pos_text, neg))
+    rng.shuffle(triples)
+    return triples
 
 
 def _mrr_for_provider(
@@ -118,20 +164,31 @@ def _mrr_e2e(provider: str, queries, gold_sets) -> float:
 def run_gate(
     *,
     device: DeviceLike = "cuda",
+    steps: int = 800,
+    batch: int = 32,
+    d_model: int = 128,
+    n_layers: int = 2,
+    lr: float = 3e-4,
+    vocab_buckets: int = 8192,
+    max_len: int = 64,
     n_candidates: int = 24,
     min_margin: float = 0.10,
     min_mrr: float = 0.50,
     keep_store: bool = False,
+    save_path: str = "",
     params_path: str = "",
     seed: int = 0,
+    two_register: bool = True,
     fixture_phase: bool = True,
+    prior_gain: float = 1.0,
+    history: Optional[list] = None,
 ) -> Dict:
+    """``history`` (a list) takes the training loop's per-step records
+    (``scripts/train_reranker.train``)."""
     from ..core.index import get_index, reset_index
     from ..device import set_models_device
     from ..store.db import reset_store
 
-    if not params_path:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
     workdir = Path(tempfile.mkdtemp(prefix="cadence_rerank_gate_"))
     saved = {k: getattr(settings, k) for k in
              ("store_path", "embeddings_provider", "embeddings_base_url",
@@ -146,6 +203,7 @@ def run_gate(
         from ..ingest.ingest import ingest_transcript
         from ..models.reranker import NeuralReranker
         from ..schemas import CallRef, ChunkingOptions, UtteranceIn
+        from ..scripts.train_reranker import train
         from ..store.db import get_store
         from .train_corpus import (
             EVENTS,
@@ -154,7 +212,7 @@ def run_gate(
             train_eval_split,
         )
 
-        set_models_device(get_index(device).device)
+        models_device = set_models_device(get_index(device).device)
         train_combos, eval_combos = train_eval_split(seed=seed)
         train_calls = generate_calls(train_combos, seed=seed)
         eval_calls = generate_calls(eval_combos, seed=seed + 1)
@@ -177,6 +235,51 @@ def run_gate(
         store = get_store()
         with store.read() as conn:
             rows = _chunks_by_call(conn)
+
+        if params_path:
+            # evaluate a pre-trained artifact (e.g. the committed
+            # two_register_v1.npz) without retraining
+            triples: List[Tuple[str, str, str]] = []
+            final_loss = None
+        else:
+            triples = build_relevance_triples(
+                train_calls, train_ids, rows, seed=seed
+            )
+            if len(triples) < batch:
+                raise SystemExit(f"too few triples ({len(triples)})")
+            params_path = str(workdir / "reranker_tuned.npz")
+            if two_register:
+                # Two-register recipe: paraphrase relevance triples +
+                # lexical-teacher triples from the SAME store, each with
+                # the frozen lexical prior attached; the model's score is
+                # prior + trained residual, so the fixture register
+                # (exact-token order) survives training by construction
+                # while the residual learns paraphrase.
+                from ..scripts.train_reranker import (
+                    attach_priors,
+                    build_triples,
+                )
+
+                teacher = build_triples(
+                    max(len(triples) // 4, 64), seed=seed + 7
+                )
+                mixed = attach_priors(triples + teacher)
+                final_loss = train(
+                    mixed, out_path=params_path, steps=steps, batch=batch,
+                    lr=lr, d_model=d_model, n_layers=n_layers,
+                    vocab_buckets=vocab_buckets, max_len=max_len,
+                    seed=seed, prior_residual=True,
+                    prior_gain=prior_gain, device=models_device,
+                    history=history,
+                )
+            else:
+                final_loss = train(
+                    triples, out_path=params_path, steps=steps,
+                    batch=batch, lr=lr, d_model=d_model,
+                    n_layers=n_layers, vocab_buckets=vocab_buckets,
+                    max_len=max_len, seed=seed, device=models_device,
+                    history=history,
+                )
 
         # ---- held-out eval through the production providers -------------
         by_call: Dict[str, List[Dict]] = {}
@@ -283,8 +386,13 @@ def run_gate(
                 f"e2e /retrieve: neural_raw MRR {e2e_neural:.4f} below "
                 f"the lexical provider's {e2e_lexical:.4f}"
             )
+        if save_path and not failures:
+            Path(save_path).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(params_path, save_path)
         return {
             "queries": len(queries),
+            "triples": len(triples),
+            "final_loss": final_loss,
             "shuffled_mrr": round(none_mrr, 4),
             "lexical_mrr": round(lexical_mrr, 4),
             "neural_mrr": round(neural_mrr, 4),
@@ -293,8 +401,10 @@ def run_gate(
             "e2e_lexical_mrr": round(e2e_lexical, 4),
             "e2e_neural_mrr": round(e2e_neural, 4),
             "fixture_metrics": (fixture or {}).get("metrics"),
+            "two_register": two_register,
             "failures": failures,
             "workdir": str(workdir),
+            "saved": save_path if (save_path and not failures) else "",
         }
     finally:
         for key, value in saved.items():
@@ -315,22 +425,38 @@ def main() -> None:
     parser.add_argument("--device", default="cuda",
                         help="device of the index and the reranker: cuda "
                         "(default) or cpu")
+    parser.add_argument("--steps", type=int, default=800)
+    parser.add_argument("--batch", type=int, default=32)
+    parser.add_argument("--d-model", type=int, default=128)
+    parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--vocab-buckets", type=int, default=8192)
+    parser.add_argument("--max-len", type=int, default=64)
     parser.add_argument("--candidates", type=int, default=24)
     parser.add_argument("--min-margin", type=float, default=0.10)
     parser.add_argument("--min-mrr", type=float, default=0.50)
+    parser.add_argument("--save", default="")
     parser.add_argument("--params", default="",
-                        help="the artifact to evaluate (training is not "
-                        "ported: required)")
+                        help="evaluate this artifact instead of training")
     parser.add_argument("--keep-store", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--single-register", action="store_true",
+                        help="paraphrase triples only, no frozen prior")
     parser.add_argument("--no-fixture-phase", action="store_true")
+    parser.add_argument("--prior-gain", type=float, default=1.0,
+                        help="scale of the frozen prior (two_register_v1.npz: "
+                        "0.2 over 2000 steps)")
     args = parser.parse_args()
     configure_logging(settings.log_level)
     outcome = run_gate(
-        device=args.device, n_candidates=args.candidates,
-        min_margin=args.min_margin, min_mrr=args.min_mrr,
-        keep_store=args.keep_store, params_path=args.params, seed=args.seed,
-        fixture_phase=not args.no_fixture_phase,
+        device=args.device, steps=args.steps, batch=args.batch,
+        d_model=args.d_model, n_layers=args.n_layers, lr=args.lr,
+        vocab_buckets=args.vocab_buckets, max_len=args.max_len,
+        n_candidates=args.candidates, min_margin=args.min_margin,
+        min_mrr=args.min_mrr, keep_store=args.keep_store,
+        save_path=args.save, params_path=args.params, seed=args.seed,
+        two_register=not args.single_register,
+        fixture_phase=not args.no_fixture_phase, prior_gain=args.prior_gain,
     )
     print(json.dumps({k: v for k, v in outcome.items() if k != "workdir"},
                      indent=2))

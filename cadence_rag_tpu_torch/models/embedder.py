@@ -1,9 +1,10 @@
 """The neural text embedder, in torch.
 
-Counterpart of ``cadence_rag_tpu/models/embedder.py``, serving half: the
-config, the hash tokenizer, the seeded initial weights (``models/prng.py``
-reproduces ``jax.random``), the forward pass, the npz checkpoints and the
-``EMBEDDINGS_PROVIDER=neural`` provider. The vector contract is the JAX
+Counterpart of ``cadence_rag_tpu/models/embedder.py``: the config, the hash
+tokenizer, the seeded initial weights (``models/prng.py`` reproduces
+``jax.random``), the forward pass, the contrastive training step (InfoNCE,
+AdamW), the npz checkpoints and the ``EMBEDDINGS_PROVIDER=neural``
+provider. The vector contract is the JAX
 package's: a causal transformer, last-token pooling, the hidden projected to
 ``embed_dim`` and mixed with a frozen hash-bag head, L2 normalised.
 
@@ -17,6 +18,18 @@ result (``preferred_element_type=f32``) runs here one of two ways:
   output (``torch.mm``/``torch.bmm`` with ``out_dtype``).
 
 Layer norms, softmax, GELU and the bag term run in f32 on both.
+
+Training. Autograd over the same forward takes the place of
+``jax.value_and_grad``. The plain path's gradients are the reference: each
+cast's backward rounds the cotangent to bf16, as the transpose of JAX's
+``convert_element_type`` does. The card path's products carry their own
+backward (``F32Product``): the cotangent rounded to bf16 times the other
+bf16 operand, a bf16 GEMM with an f32 result, rounded to bf16. With
+``freeze_bag`` the bag and the mixture get no gradient (JAX's
+``stop_gradient``), but AdamW updates every leaf, so weight decay still
+shrinks them, as it does in the JAX package: ``tuned_small_v1.npz`` stores
+``mix`` = [0.9851036, 0.4925518], the initial [1.0, 0.5] decayed. The
+scale cancels in the final normalisation; the saved bytes do not.
 
 Checkpoints are the JAX package's npz files, keyed by JAX tree paths
 (``"['blocks']/[0]/['ln1']/['bias']"``): a file saved by either package
@@ -87,12 +100,41 @@ def batch_tokenize(texts: Sequence[str], cfg: EmbedderConfig) -> np.ndarray:
 
 # ------------------------------------------------- products and trees ----
 
+class F32Product(torch.autograd.Function):
+    """``a @ b`` of bf16 operands with an f32 result on the card: one bf16
+    GEMM (``torch.mm``/``torch.bmm`` with ``out_dtype``) for 2-d or 3-d
+    operands. Its backward is the JAX package's dot transpose on the card:
+    each operand's cotangent is the f32 cotangent rounded to bf16 times the
+    other bf16 operand, a bf16 GEMM with an f32 result, rounded to bf16
+    (the operand's type)."""
+
+    @staticmethod
+    def forward(ctx, a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a16, b16)
+        product = torch.mm if a16.dim() == 2 else torch.bmm
+        return product(a16, b16, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a16, b16 = ctx.saved_tensors
+        product = torch.mm if a16.dim() == 2 else torch.bmm
+        g16 = grad.to(torch.bfloat16)
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = product(g16, b16.transpose(-1, -2),
+                             out_dtype=torch.float32).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            grad_b = product(a16.transpose(-1, -2), g16,
+                             out_dtype=torch.float32).to(torch.bfloat16)
+        return grad_a, grad_b
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
     """``(..., K) @ (K, N)`` of bf16-rounded operands with an f32 result."""
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     if plain:
         return a16.float() @ b16.float()
-    out = torch.mm(a16.reshape(-1, a.shape[-1]), b16, out_dtype=torch.float32)
+    out = F32Product.apply(a16.reshape(-1, a.shape[-1]), b16)
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
@@ -103,8 +145,8 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
     if plain:
         return a16.float() @ b16.float()
     lead = a.shape[:-2]
-    out = torch.bmm(a16.reshape(-1, *a.shape[-2:]),
-                    b16.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+    out = F32Product.apply(a16.reshape(-1, *a.shape[-2:]),
+                           b16.reshape(-1, *b.shape[-2:]))
     return out.reshape(*lead, *out.shape[-2:])
 
 
@@ -262,9 +304,10 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 class Embedder(Encoder):
     """(B, L) int token ids -> (B, embed_dim) unit vectors."""
 
-    @torch.inference_mode()
-    def forward(self, token_ids: torch.Tensor,
+    def vectors(self, token_ids: torch.Tensor,
                 plain: Optional[bool] = None) -> torch.Tensor:
+        """The forward pass, differentiable (``forward`` runs it under
+        ``torch.inference_mode``)."""
         token_ids = token_ids.to(self.device, torch.int64)
         plain = use_plain(token_ids, plain)
         x, mask = self.hidden(token_ids, plain)
@@ -273,11 +316,21 @@ class Embedder(Encoder):
         pooled = x[torch.arange(x.shape[0], device=x.device), lengths]
         out = mm_f32(pooled, self.out_proj, plain)
         if self.cfg.use_bag:
+            bag_emb, mix = self.bag_emb, self.mix
+            if self.cfg.freeze_bag:
+                # the lexical prior stays fixed: no gradient (JAX's
+                # stop_gradient); AdamW still decays both
+                bag_emb, mix = bag_emb.detach(), mix.detach()
             counts = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
-            bag = (mask[..., None].float() * self.bag_emb[token_ids]).sum(dim=1)
+            bag = (mask[..., None].float() * bag_emb[token_ids]).sum(dim=1)
             bag = _unit(bag / counts)
-            out = self.mix[0] * bag + self.mix[1] * _unit(out)
+            out = mix[0] * bag + mix[1] * _unit(out)
         return _unit(out)
+
+    @torch.inference_mode()
+    def forward(self, token_ids: torch.Tensor,
+                plain: Optional[bool] = None) -> torch.Tensor:
+        return self.vectors(token_ids, plain)
 
 
 def encode(model: Embedder, token_ids, plain: Optional[bool] = None
@@ -346,6 +399,147 @@ def from_jax_params(params: Mapping[str, Any], cfg: EmbedderConfig,
     model = Embedder(cfg, device)
     load_flat(model, flatten_tree(params))
     return model
+
+
+# ------------------------------------------------------------- training ----
+
+def tokens_on(model: nn.Module, token_ids) -> torch.Tensor:
+    """Token ids (numpy or a tensor) as int64 on the model's device."""
+    if not isinstance(token_ids, torch.Tensor):
+        token_ids = torch.from_numpy(np.asarray(token_ids))
+    return token_ids.to(model.device, torch.int64)
+
+
+def info_nce_loss(model: Embedder, anchors, positives,
+                  temperature: float = 0.05, *, negatives=None,
+                  plain: Optional[bool] = None) -> torch.Tensor:
+    """InfoNCE with in-batch negatives; ``negatives`` (B, L) adds one
+    explicit hard negative per anchor as a second logit block. The three
+    token blocks go through one forward pass (the rows are independent)."""
+    blocks = [tokens_on(model, anchors), tokens_on(model, positives)]
+    if negatives is not None:
+        blocks.append(tokens_on(model, negatives))
+    batch = blocks[0].shape[0]
+    z = model.vectors(torch.cat(blocks), plain)
+    za, zp = z[:batch], z[batch:2 * batch]
+    logits = za @ zp.T  # in-batch negatives
+    if negatives is not None:
+        logits = torch.cat([logits, za @ z[2 * batch:].T], dim=1)
+    logits = logits / temperature
+    return torch.mean(-torch.log_softmax(logits, dim=-1).diagonal())
+
+
+def named_leaves(params) -> Dict[str, torch.Tensor]:
+    """A module's parameters, or a {name: tensor} dict, as {name: tensor}."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    """Zero moments for every leaf of ``params`` (a module or a {name:
+    tensor} dict) and an int32 step counter, on the leaves' device."""
+    leaves = named_leaves(params)
+    device = next(iter(leaves.values())).device
+    return {"mu": {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in leaves.items()},
+            "nu": {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in leaves.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def opt_state_from_jax(opt_state: Mapping[str, Any], device: DeviceLike
+                       ) -> Dict[str, Any]:
+    """The JAX package's AdamW state (numpy leaves) as the port's, keyed by
+    module names (``from_jax_params``' counterpart for the optimizer)."""
+    device = resolve_device(device)
+
+    def leaves(tree):
+        return {n: _tensor(v).to(device, torch.float32)
+                for n, v in flatten_tree(tree).items()}
+
+    return {"mu": leaves(opt_state["mu"]), "nu": leaves(opt_state["nu"]),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def adamw_update(params, grads: Mapping[str, Optional[torch.Tensor]],
+                 opt_state: Dict[str, Any], lr: float = 1e-4, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.01):
+    """The JAX package's AdamW, in place, on every leaf of ``params`` (a
+    module or a {name: tensor} dict): bias-corrected moments, ``eps``
+    outside the square root, ``weight_decay * p`` inside the ``lr``
+    product. A leaf without a gradient (None) takes a zero one, so it is
+    still decayed, as in JAX. Each step is JAX's f32 operations in JAX's
+    order. -> (params, opt_state)"""
+    leaves = named_leaves(params)
+    names = list(leaves)
+    p = [leaves[n] for n in names]
+    g = [grads.get(n) if grads.get(n) is not None else torch.zeros_like(leaves[n])
+         for n in names]
+    mu = [opt_state["mu"][n] for n in names]
+    nu = [opt_state["nu"][n] for n in names]
+    f32 = lambda x: float(np.float32(x))
+    step = opt_state["step"] + 1
+    # mu = b1 * m + (1 - b1) * g;  nu = b2 * v + (1 - b2) * g * g
+    torch._foreach_mul_(mu, f32(b1))
+    torch._foreach_add_(mu, torch._foreach_mul(g, f32(1 - b1)))
+    torch._foreach_mul_(nu, f32(b2))
+    g2 = torch._foreach_mul(g, f32(1 - b2))
+    torch._foreach_mul_(g2, g)
+    torch._foreach_add_(nu, g2)
+    t = step.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=t.device)
+    mu_hat_scale = one / (one - torch.tensor(f32(b1), device=t.device) ** t)
+    nu_hat_scale = one / (one - torch.tensor(f32(b2), device=t.device) ** t)
+    # p - lr * (m * mu_hat_scale / (sqrt(v * nu_hat_scale) + eps) + wd * p)
+    den = torch._foreach_mul(nu, nu_hat_scale)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, f32(eps))
+    upd = torch._foreach_mul(mu, mu_hat_scale)
+    torch._foreach_div_(upd, den)
+    torch._foreach_add_(upd, torch._foreach_mul(p, f32(weight_decay)))
+    torch._foreach_mul_(upd, f32(lr))
+    torch._foreach_sub_(p, upd)
+    opt_state["step"] = step
+    return params, opt_state
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """Every parameter of ``model`` asks for gradients (the serving path's
+    numbers do not change: ``forward`` runs under inference mode)."""
+    for param in model.parameters():
+        param.requires_grad_(True)
+    return model
+
+
+def gradients(model: nn.Module, loss: torch.Tensor
+              ) -> Dict[str, Optional[torch.Tensor]]:
+    """{name: the gradient of ``loss``} for every leaf that asks for one;
+    None where ``loss`` does not depend on the leaf (JAX's zero)."""
+    leaves = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return dict(zip(leaves, grads))
+
+
+def apply_gradients(model: nn.Module, opt_state: Dict[str, Any],
+                    loss: torch.Tensor, lr: float) -> None:
+    """The gradient of ``loss`` for every leaf, then ``adamw_update``."""
+    adamw_update(model, gradients(model, loss), opt_state, lr=lr)
+
+
+def train_step(model: Embedder, opt_state: Dict[str, Any], anchors, positives,
+               *, negatives=None, lr: float = 1e-4,
+               plain: Optional[bool] = None):
+    """One InfoNCE step: the loss, its gradient for every leaf and an AdamW
+    update, in place. -> (model, opt_state, loss (a 0-dim tensor))"""
+    trainable(model)
+    loss = info_nce_loss(model, anchors, positives, negatives=negatives,
+                         plain=plain)
+    apply_gradients(model, opt_state, loss, lr)
+    return model, opt_state, loss.detach()
 
 
 # ------------------------------------------------------------ persistence ----

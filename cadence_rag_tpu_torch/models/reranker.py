@@ -1,8 +1,9 @@
 """The cross-encoder reranker, in torch.
 
-Counterpart of ``cadence_rag_tpu/models/reranker.py``, serving half: the
-config, the pair tokenizer, the seeded initial weights, ``score_pairs``, the
-npz checkpoints and ``NeuralReranker`` (``RERANK_PROVIDER=neural`` and
+Counterpart of ``cadence_rag_tpu/models/reranker.py``: the config, the pair
+tokenizer, the seeded initial weights, ``score_pairs``, the pairwise
+(RankNet) loss and its training step, the npz checkpoints and
+``NeuralReranker`` (``RERANK_PROVIDER=neural`` and
 ``neural_raw``). A pair is hash-tokenized as ``query [SEP] doc``, run
 through the embedder's blocks, mean-pooled over its tokens and projected to
 one relevance logit; with ``prior_residual`` the frozen lexical prior, times
@@ -15,7 +16,9 @@ bidirectional, but its ``score_pairs`` runs the embedder's causal
 the embedder's with ``embed_dim`` 1, bag head included (the committed
 artifacts carry ``bag_emb`` (V, 1) and ``mix``, which scoring never reads).
 Precision as in ``models/embedder.py``: the plain path on the CPU, bf16
-GEMMs with f32 results on the card.
+GEMMs with f32 results on the card, for the gradients too. Training updates
+every leaf with AdamW, so the bag head and ``mix``, which scoring never
+reads, are decayed as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,10 +36,13 @@ from .embedder import (
     EmbedderConfig,
     Encoder,
     _init_makers,
+    apply_gradients,
     flatten_tree,
     jax_path,
     load_flat,
     mm_f32,
+    tokens_on,
+    trainable,
     use_plain,
 )
 
@@ -92,10 +98,12 @@ class Reranker(Encoder):
         super().__init__(cfg.encoder_config(), device)
         self.rerank_cfg = cfg
 
-    @torch.inference_mode()
-    def forward(self, token_ids: torch.Tensor,
-                prior: Optional[torch.Tensor] = None,
-                plain: Optional[bool] = None) -> torch.Tensor:
+    def logits(self, token_ids: torch.Tensor,
+               prior: Optional[torch.Tensor] = None,
+               plain: Optional[bool] = None) -> torch.Tensor:
+        """The forward pass, differentiable (``forward`` runs it under
+        ``torch.inference_mode``); the prior is an input, never a gradient
+        path."""
         token_ids = token_ids.to(self.device, torch.int64)
         plain = use_plain(token_ids, plain)
         x, mask = self.hidden(token_ids, plain)
@@ -105,8 +113,14 @@ class Reranker(Encoder):
         cfg = self.rerank_cfg
         if cfg.prior_residual and prior is not None:
             logits = logits + cfg.prior_gain * torch.as_tensor(
-                prior, dtype=torch.float32).to(self.device)
+                prior, dtype=torch.float32).to(self.device).detach()
         return logits
+
+    @torch.inference_mode()
+    def forward(self, token_ids: torch.Tensor,
+                prior: Optional[torch.Tensor] = None,
+                plain: Optional[bool] = None) -> torch.Tensor:
+        return self.logits(token_ids, prior, plain)
 
 
 def score_pairs(model: Reranker, token_ids, prior=None,
@@ -115,6 +129,35 @@ def score_pairs(model: Reranker, token_ids, prior=None,
     prior_t = None if prior is None else torch.as_tensor(
         np.asarray(prior, np.float32))
     return model(torch.as_tensor(np.asarray(token_ids)), prior_t, plain)
+
+
+# ------------------------------------------------------------- training ----
+
+def pairwise_loss(model: Reranker, tokens_hi, tokens_lo, prior_hi=None,
+                  prior_lo=None, plain: Optional[bool] = None) -> torch.Tensor:
+    """RankNet-style pairwise logistic loss, ``softplus(-(s_hi - s_lo))``
+    averaged: it distills the teacher's ordering, not its scale. Under
+    ``prior_residual`` the frozen prior joins each score (both priors must
+    be given). The two blocks go through one forward pass."""
+    hi, lo = tokens_on(model, tokens_hi), tokens_on(model, tokens_lo)
+    prior = None
+    if prior_hi is not None and prior_lo is not None:
+        prior = torch.cat([torch.as_tensor(p, dtype=torch.float32, device=model.device)
+                           for p in (prior_hi, prior_lo)])
+    s = model.logits(torch.cat([hi, lo]), prior, plain)
+    margin = s[: hi.shape[0]] - s[hi.shape[0]:]
+    return torch.mean(torch.logaddexp(-margin, torch.zeros_like(margin)))
+
+
+def train_step(model: Reranker, opt_state, tokens_hi, tokens_lo,
+               lr: float = 1e-4, prior_hi=None, prior_lo=None,
+               plain: Optional[bool] = None):
+    """One pairwise step: the loss, its gradient for every leaf and the
+    embedder's AdamW update, in place. -> (model, opt_state, loss)"""
+    trainable(model)
+    loss = pairwise_loss(model, tokens_hi, tokens_lo, prior_hi, prior_lo, plain)
+    apply_gradients(model, opt_state, loss, lr)
+    return model, opt_state, loss.detach()
 
 
 def init_params(cfg: RerankerConfig, key: torch.Tensor,

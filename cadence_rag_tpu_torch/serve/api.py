@@ -25,12 +25,11 @@ import uuid
 from datetime import datetime
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import torch
 from pydantic import ValidationError
 
 from ..config import settings
 from ..core.index import get_index
-from ..device import DeviceLike, set_models_device
+from ..device import DeviceLike, pin_f32_matmul, set_models_device
 from ..engine.browse import expand_evidence, get_call, get_chunk, list_calls
 from ..engine.retrieve import retrieve_evidence
 from ..ingest.fs_queue import get_ingest_job, list_ingest_jobs
@@ -458,8 +457,7 @@ def startup(device: DeviceLike = "cuda") -> None:
     index = get_index(device)
     # the in-process embedders and the cross-encoder serve beside the index
     set_models_device(index.device)
-    if index.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+    pin_f32_matmul(index.device)
     syncer = get_syncer()
     # watermark BEFORE the rebuild read: any row committed in between has
     # seq > watermark and the first poll picks it up (rows both rebuilt

@@ -88,8 +88,9 @@ final result line:
              ``index.growth_swap``; afterwards every known row first and K1
              and K3 held on the doubled tensors. On their own stores and
              indexes: (2) ``build_and_apply`` of a 2048-wide vocab head over
-             110,000 documents of real text (windows of this checkout's
-             sources), every known document first, K1 on the re-scattered
+             110,000 documents of real text (windows of the checkout's
+             sources that no PR of the port edits), every known document
+             first, K1 on the re-scattered
              ``lex`` tensor, a restart from a checkpoint through startup's
              digest check with the rows bit-equal, and one through the
              rebuild from the store. (4) an index capped at
@@ -104,6 +105,25 @@ final result line:
              ``GROWTH_MIGRATION_ENABLED=0`` on the index-API phase's index
              under a thread that serves its batch: ``index.grow`` and its
              steps timed one by one.
+6e. training — on stores of their own, after the models phase: (1) the
+             embedder's and the cross-encoder's card-path gradients (bf16
+             GEMMs, ``models/embedder.F32Product``) against their plain
+             path's on one batch of each gate's recipe; (2) the paraphrase
+             gate (``evals/paraphrase_gate.py``) trains on the card at
+             ``PARAPHRASE_GATE_KW``, its ms a step beside the step's bound
+             (its products at the bf16 peak, AdamW's bytes at the HBM rate),
+             the tuned MRR against the stub's and its floors, and the first
+             steps' losses beside the same steps on the CPU; (3) the rerank
+             gate's training branch (two-register, ``RERANK_GATE_KW``), its
+             saved artifact reloaded into
+             ``NeuralReranker`` on the card scoring the fixture pairs as the
+             trained model did; (4) ``scripts/train_embedder.train`` at its
+             CLI defaults over the gate's pairs; (5) the geometry gate at
+             1,000,000 rows of the committed embedder's vectors: encode
+             texts/s, the ann (K1's dense lane over bf16 rows), int8 and ivf
+             recalls, and K1 against its plain version at the shape the gate
+             launched it with (64 queries x 1,000,000 rows, dense-only). The
+             kernels line's K1 launches include the gate's.
 6c. int8    — an index with ``INDEX_EMBEDDING_DTYPE=int8`` (300,037 chunks,
              30,011 artifacts, known rows) serves one batch of 128 through
              the engine: planned ann, every known row first.
@@ -2358,13 +2378,23 @@ def run_lifecycle_served(device, index, workdir, dispatches, survivors,
     return out
 
 
+# files no PR of the port edits (the JAX package, its tests, the documents
+# that predate the port): the vocab step's corpus stays the same from PR to
+# PR, so its known documents stay on the same texts
+FROZEN_SOURCES = ("cadence_rag_tpu/*.py", "cadence_rag_tpu/*/*.py", "tests/unit/*.py",
+                  "tests/integration/*.py", "tests/kernels/*.py", "docs/*.md")
+
+
 def source_texts(n):
     """n distinct documents of real text: windows of three consecutive
-    non-empty lines of this checkout's own Markdown and Python sources
-    (then of two and of four lines, if three do not give enough)."""
+    non-empty lines of the checkout's sources that no PR of the port edits
+    (``FROZEN_SOURCES``, and the root's Markdown but the documents that
+    follow the port, which name its card, the H100), then of two and of four
+    lines, if three do not give enough."""
     root = Path(__file__).resolve().parent
-    files = sorted(p for pat in ("*.md", "*.py", "*/*.py", "*/*/*.py", "*/*.md")
-                   for p in root.glob(pat))
+    files = sorted({p for pat in FROZEN_SOURCES for p in root.glob(pat)}
+                   | {p for p in root.glob("*.md")
+                      if "H100" not in p.read_text(errors="ignore")})
     lines = []
     for path in files:
         try:
@@ -3308,6 +3338,288 @@ def _models_offline(device, workdir, cpu_gate):
     return out
 
 
+# -- training (ROADMAP Queue 1 item 6b) ------------------------------------------
+PARAPHRASE_RECIPE = dict(vocab_buckets=8192, d_model=128, n_layers=2, n_heads=4,
+                         d_ff=512, max_len=48, embed_dim=1024)
+RERANK_RECIPE = dict(vocab_buckets=8192, d_model=128, n_layers=2, n_heads=4, d_ff=512,
+                     max_len=64, prior_residual=True, prior_gain=1.0)
+# tests/test_torch_models_cuda.py's tolerances for the card path's gradients
+CARD_GRAD_RTOL = 0.1
+CARD_LOSS_ATOL = 1e-3
+GRAD_FLOOR = 1 / 64
+# the gates' runs. At their defaults (600 steps; 800 at prior gain 1.0) the
+# JAX package's gates miss their own floors on the CPU (PERF.md, ROADMAP
+# Queue 3). The rerank gate takes two_register_v1.npz's recipe (NOTES_DEV.md:
+# gain 0.2, 2000 steps). The paraphrase gate takes twice tuned_small_v1.npz's
+# 3000 steps: at 3000 one card run in seven missed the margin (0.6464 against
+# 0.6474), at 6000 four of four read 0.748-0.810
+PARAPHRASE_GATE_KW = dict(steps=6000)
+RERANK_GATE_KW = dict(steps=2000, prior_gain=0.2)
+CPU_STEPS = 20
+# scripts/train_embedder.py's CLI defaults
+TRAIN_CLI = dict(steps=200, batch=32, lr=1e-4, d_model=256, n_layers=4,
+                 vocab_buckets=32768, max_len=64, seed=0, entity_swap_p=0.5)
+GEOMETRY_N = 1_000_000
+GEOMETRY_QUERIES = 256
+GEOMETRY_FLOORS = {"ann_recall": 0.95, "int8_eps_recall": 0.99}
+ADAMW_BYTES = 7 * 4     # reads p, g, mu, nu and writes p, mu, nu, f32 each
+
+
+def recipe_texts(seed):
+    """One batch of 32 from the paraphrase corpus: (summaries, their calls'
+    first transcript lines, another call's line)."""
+    from cadence_rag_tpu_torch.evals.train_corpus import generate_calls, train_eval_split
+
+    calls = generate_calls(train_eval_split(seed=0)[0], seed=0)
+    pick = np.random.default_rng(seed).choice(len(calls), 32, replace=False)
+    return ([calls[i].summary for i in pick], [calls[i].transcript[0] for i in pick],
+            [calls[(i + 1) % len(calls)].transcript[0] for i in pick])
+
+
+def card_against_plain(model, loss_of):
+    """The loss and every leaf's gradient on the card path and the plain
+    path. -> {"loss", "loss_diff", "rel": {leaf: max |card - plain| / max
+    |plain|}, "held": {leaf: max |card - plain| / max(max |plain|,
+    GRAD_FLOOR x the model's largest |plain|)}, "max_held"}"""
+    from cadence_rag_tpu_torch.models import embedder as emb
+
+    losses, grads = [], []
+    for plain in (False, True):
+        loss = loss_of(plain)
+        losses.append(float(loss.detach()))
+        grads.append(emb.gradients(model, loss))
+    diff = {name: float((grads[0][name] - g).abs().max())
+            for name, g in grads[1].items() if g is not None}
+    scale = {name: float(grads[1][name].abs().max()) for name in diff}
+    top = max(scale.values())
+    rel = {name: d / max(scale[name], 1e-30) for name, d in diff.items()}
+    held = {name: d / max(scale[name], GRAD_FLOOR * top) for name, d in diff.items()}
+    return {"loss": losses[1], "loss_diff": abs(losses[0] - losses[1]), "rel": rel,
+            "held": held, "max_held": max(held.values()), "grad_max": top}
+
+
+def check_training_gradients(device):
+    """Step 1: both models' card-path gradients against the plain path's on
+    one batch of each gate's recipe."""
+    from cadence_rag_tpu_torch.models import embedder as emb
+    from cadence_rag_tpu_torch.models import prng, reranker
+
+    anchors, positives, negatives = recipe_texts(seed=5)
+    cfg = emb.EmbedderConfig(**PARAPHRASE_RECIPE)
+    model = emb.trainable(emb.init_params(cfg, prng.PRNGKey(0), device))
+    a, p, n = (torch.from_numpy(emb.batch_tokenize(t, cfg))
+               for t in (anchors, positives, negatives))
+    out = {"embedder": card_against_plain(
+        model, lambda plain: emb.info_nce_loss(model, a, p, negatives=n, plain=plain))}
+    rcfg = reranker.RerankerConfig(**RERANK_RECIPE)
+    model = emb.trainable(reranker.init_params(rcfg, prng.PRNGKey(0), device))
+    hi = np.stack([reranker.pair_tokenize(q, d, rcfg) for q, d in zip(anchors, positives)])
+    lo = np.stack([reranker.pair_tokenize(q, d, rcfg) for q, d in zip(anchors, negatives)])
+    prior = np.random.default_rng(6).normal(size=(2, 32)).astype(np.float32)
+    out["reranker"] = card_against_plain(
+        model, lambda plain: reranker.pairwise_loss(model, hi, lo, prior[0], prior[1], plain))
+    for name, r in out.items():
+        if r["loss_diff"] > CARD_LOSS_ATOL or r["max_held"] > CARD_GRAD_RTOL:
+            raise RuntimeError(f"{name}: card gradients off the plain path's: {r}")
+    return out
+
+
+def encoder_step_flops(recipe, sequences, seq_len, head_dim):
+    """Operations of one training step (forward, and a backward of twice
+    its products) of the encoder of ``recipe`` over ``sequences`` x
+    ``seq_len`` tokens, the full L x L attention products included, and a
+    (d_model x ``head_dim``) head on each pooled row."""
+    d, f = recipe["d_model"], recipe["d_ff"]
+    per_token = recipe["n_layers"] * (2 * d * (3 * d + d + 2 * f) + 4 * seq_len * d)
+    return 3.0 * sequences * (seq_len * per_token + 2 * d * head_dim)
+
+
+def n_params_of(recipe, embed_dim):
+    """Every leaf's elements: embeddings, blocks, the head, the bag head
+    (vocab x ``embed_dim``) and ``mix``."""
+    v, d, f = recipe["vocab_buckets"], recipe["d_model"], recipe["d_ff"]
+    return (v * d + recipe["max_len"] * d + 2 * d + d * embed_dim + v * embed_dim + 2
+            + recipe["n_layers"] * (4 * d + 4 * d * d + 2 * d * f))
+
+
+def step_bound_ms(flops, n_params):
+    """The larger of the step's products at the bf16 dense peak and
+    AdamW's bytes at the HBM rate. -> (ms, "operations" | "bytes")"""
+    by_ops = flops / (BF16_PEAK_TFLOPS * 1e12) * 1e3
+    by_bytes = n_params * ADAMW_BYTES / (HBM_PEAK_GBS * 1e9) * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes")
+
+
+def step_ms(history):
+    """Mean ms a step after the first (each step waited for)."""
+    return (history[-1]["t"] - history[0]["t"]) / (len(history) - 1) * 1e3
+
+
+def fixture_pairs():
+    """The real gate's fixture calls as rerank pairs: each call's title
+    against its utterances, with seeded priors."""
+    from cadence_rag_tpu_torch.evals.fixtures import FIXTURE_CALLS
+
+    rng = np.random.default_rng(9)
+    return [(title, texts, rng.normal(size=len(texts)).astype(np.float32))
+            for title, _ext, texts, _arts in FIXTURE_CALLS]
+
+
+def run_training(device, workdir):
+    """The training phase, on stores of its own: card gradients against
+    plain; the paraphrase gate at its defaults (and the first CPU_STEPS
+    steps of the same training on the CPU); the rerank gate's training
+    branch at its defaults, its artifact reloaded into ``NeuralReranker``;
+    ``train`` at ``scripts/train_embedder.py``'s CLI defaults; the geometry
+    gate at GEOMETRY_N rows through K1. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+
+    saved_dim = settings.embeddings_dim
+    settings.embeddings_dim = 1024      # the gates' and the CLI's width
+    try:
+        out = {"gradients": check_training_gradients(device)}
+        out.update(run_training_gates(device, workdir))
+    finally:
+        settings.embeddings_dim = saved_dim
+    torch.cuda.empty_cache()
+    out["geometry"] = run_geometry(device)
+    return out
+
+
+def run_training_gates(device, workdir):
+    """Steps 2-4 of the training phase."""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.evals import paraphrase_gate, rerank_gate
+    from cadence_rag_tpu_torch.models import reranker
+    from cadence_rag_tpu_torch.scripts import train_embedder
+
+    out = {}
+    # 2. the paraphrase gate; its pairs and training arguments are kept for
+    # the CPU's steps and the CLI-default run
+    seen, inner = {}, train_embedder.train
+
+    def keep(pairs, negatives, **kwargs):
+        seen.update(pairs=pairs, negatives=negatives, kwargs=kwargs)
+        return inner(pairs, negatives, **kwargs)
+
+    hist = []
+    train_embedder.train = keep
+    try:
+        t0 = time.perf_counter()
+        gate = paraphrase_gate.run_gate(device=device, history=hist, **PARAPHRASE_GATE_KW)
+        gate_s = time.perf_counter() - t0
+    finally:
+        train_embedder.train = inner
+    cpu_hist = []
+    inner(seen["pairs"], seen["negatives"], **{
+        **seen["kwargs"], "steps": CPU_STEPS, "device": "cpu", "history": cpu_hist,
+        "out_path": str(workdir / "cpu_steps.npz")})
+    bound, bound_by = step_bound_ms(encoder_step_flops(PARAPHRASE_RECIPE, 3 * 32, 48, 1024),
+                                    n_params_of(PARAPHRASE_RECIPE, 1024))
+    out["paraphrase"] = {
+        **{k: v for k, v in gate.items() if k != "workdir"}, "s": gate_s,
+        "steps": len(hist), "ms_per_step": step_ms(hist), "bound_ms": bound,
+        "bound_by": bound_by, "losses": [h["loss"] for h in hist[:CPU_STEPS]],
+        "cpu_losses": [h["loss"] for h in cpu_hist]}
+    if gate["failures"]:
+        raise RuntimeError(f"paraphrase gate: {gate['failures']}")
+
+    # 3. the rerank gate's training branch; the model as training left it
+    # scores the fixture pairs when it is saved
+    at_save, save = {}, reranker.save_params
+
+    def score_at_save(path, model):
+        at_save["scores"] = [
+            reranker.score_pairs(model, np.stack([reranker.pair_tokenize(
+                q, d, model.rerank_cfg) for d in docs]), prior).cpu().numpy()
+            for q, docs, prior in fixture_pairs()]
+        return save(path, model)
+
+    rr_hist, artifact = [], workdir / "rerank_gate.npz"
+    reranker.save_params = score_at_save
+    try:
+        t0 = time.perf_counter()
+        rr = rerank_gate.run_gate(device=device, save_path=str(artifact), history=rr_hist,
+                                  **RERANK_GATE_KW)
+        rr_s = time.perf_counter() - t0
+    finally:
+        reranker.save_params = save
+    if rr["failures"]:
+        raise RuntimeError(f"rerank gate (training): {rr['failures']}")
+    saved_path = settings.reranker_params_path
+    settings.reranker_params_path = str(artifact)
+    try:
+        served = reranker.NeuralReranker(device=device)
+        reload_err = max(float(np.abs(served.score(q, docs, prior) - want).max())
+                         for (q, docs, prior), want in zip(fixture_pairs(), at_save["scores"]))
+    finally:
+        settings.reranker_params_path = saved_path
+    if reload_err > 1e-5:
+        raise RuntimeError(f"the saved reranker scores {reload_err} off the trained model")
+    bound, bound_by = step_bound_ms(encoder_step_flops(RERANK_RECIPE, 2 * 32, 64, 1),
+                                    n_params_of(RERANK_RECIPE, 1))
+    out["rerank"] = {**{k: v for k, v in rr.items() if k != "workdir"}, "s": rr_s,
+                     "steps": len(rr_hist), "ms_per_step": step_ms(rr_hist),
+                     "bound_ms": bound, "bound_by": bound_by, "reload_err": reload_err}
+
+    # 4. train at the CLI's defaults over the gate's pairs
+    cli_hist = []
+    t0 = time.perf_counter()
+    train_embedder.train(seen["pairs"], seen["negatives"], out_path=str(workdir / "cli.npz"),
+                         device=device, history=cli_hist, **TRAIN_CLI)
+    cli_s = time.perf_counter() - t0
+    cli = dict(TRAIN_CLI, d_ff=4 * TRAIN_CLI["d_model"])
+    bound, bound_by = step_bound_ms(encoder_step_flops(cli, 3 * 32, 64, 1024),
+                                    n_params_of(cli, 1024))
+    out["train_cli"] = {"s": cli_s, "steps": len(cli_hist), "ms_per_step": step_ms(cli_hist),
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "first_loss": cli_hist[0]["loss"], "final_loss": cli_hist[-1]["loss"]}
+    return out
+
+
+def run_geometry(device):
+    """Step 5: the geometry gate at GEOMETRY_N rows over the committed
+    embedder's vectors, its ann lane through K1, and K1 against its plain
+    version at the shape the gate launched it with."""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.engine.planner import recall_target_for_ef_search
+    from cadence_rag_tpu_torch.evals import geometry_gate
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan, fused_scan_plain
+
+    timings = {}
+    t0 = time.perf_counter()
+    docs, queries = geometry_gate.embedder_geometry(
+        GEOMETRY_N, GEOMETRY_QUERIES, 0, str(EMBEDDER_ARTIFACT), device, timings)
+    fused_scan.launches = 0
+    geo = geometry_gate.run_gates(
+        docs, queries, 10, recall_target_for_ef_search(settings.embeddings_hnsw_ef_search),
+        device=device)
+    launches = fused_scan.launches
+    geo_s = time.perf_counter() - t0
+    if launches <= 0:
+        raise RuntimeError("the geometry gate did not launch K1")
+    low = {k: geo[k] for k, floor in GEOMETRY_FLOORS.items() if geo[k] < floor}
+    if low:
+        raise RuntimeError(f"geometry gate under its floors: {low}")
+    n = docs.shape[0]
+    rows = docs.to(torch.bfloat16)
+    del docs
+    q = queries[:64]
+    mask = torch.ones((q.shape[0], n), dtype=torch.bool, device=device)
+    args = (q, torch.zeros((q.shape[0], 32), dtype=torch.float32, device=device), rows,
+            torch.zeros((n, 32), dtype=torch.int8, device=device), mask,
+            torch.ones(n, dtype=torch.bool, device=device))
+    got = fused_scan(*args, dense=True)
+    torch.cuda.synchronize()
+    want = fused_scan_plain(*args, dense=True)
+    k1 = check_lane(got[0], got[1], want[0], want[1],
+                    (q.to(torch.bfloat16).float(), rows, 1.0, mask, n), DENSE_ATOL)
+    del rows, mask, got, want, args
+    torch.cuda.empty_cache()
+    return {**geo, "timings": timings, "s": geo_s, "launches": launches,
+            "k1": {"batch": int(q.shape[0]), "rows": n, **k1}}
+
+
 def write_details(path, details):
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -3580,6 +3892,56 @@ def main(argv=None) -> int:
         f"{es['rows']} rows through the port's HTTP provider {es['backfill_s']:.2f} s, "
         f"stored vectors against the in-process provider's |err| {es['max_abs_err']:.3g}")
 
+    training_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_training_"))
+    try:
+        details["training"] = tr = run_training(device, training_dir)
+    finally:
+        shutil.rmtree(training_dir, ignore_errors=True)
+    log(f"training gradients ({smi}), card path against plain on one batch of 32: "
+        + "; ".join(f"{name} loss {g['loss']:.5f} |diff| {g['loss_diff']:.3g} (tol "
+                    f"{CARD_LOSS_ATOL}), each leaf's max |grad diff| over max(its max "
+                    f"|grad|, {GRAD_FLOOR:.4g} x the model's {g['grad_max']:.3g}): max "
+                    f"{g['max_held']:.3g} (tol {CARD_GRAD_RTOL}); over its own max: "
+                    + ", ".join(f"{leaf} {r:.3g}" for leaf, r in g["rel"].items())
+                    for name, g in tr["gradients"].items()))
+    pg = tr["paraphrase"]
+    log(f"training paraphrase gate ({smi}): {pg['steps']} steps {pg['ms_per_step']:.2f} "
+        f"ms a step (bound {pg['bound_ms']:.4f} ms by {pg['bound_by']}), gate "
+        f"{pg['s']:.1f} s; tuned dense-only MRR {pg['neural_mrr']:.4f} against the stub's "
+        f"{pg['stub_mrr']:.4f} (floors: margin 0.10, MRR 0.50); the first {CPU_STEPS} "
+        f"losses on the card " + " ".join(f"{x:.4f}" for x in pg["losses"])
+        + " | on the CPU " + " ".join(f"{x:.4f}" for x in pg["cpu_losses"]))
+    rt = tr["rerank"]
+    log(f"training rerank gate ({smi}), two-register: {rt['steps']} steps "
+        f"{rt['ms_per_step']:.2f} ms a step (bound {rt['bound_ms']:.4f} ms by "
+        f"{rt['bound_by']}), gate {rt['s']:.1f} s; neural_raw MRR {rt['neural_mrr']:.4f}, "
+        f"hybrid {rt['hybrid_mrr']:.4f}, lexical {rt['lexical_mrr']:.4f}; e2e neural_raw "
+        f"{rt['e2e_neural_mrr']:.4f} against lexical {rt['e2e_lexical_mrr']:.4f}; fixture "
+        + ", ".join(f"{k} {rt['fixture_metrics'][k]:.4f}" for k in GATE_FLOORS)
+        + f"; the saved artifact in NeuralReranker on the card scores the fixture pairs "
+        f"within {rt['reload_err']:.3g} of the trained model")
+    tc = tr["train_cli"]
+    log(f"training train_embedder at its CLI defaults ({smi}): d_model 256, 4 layers, "
+        f"vocab 32768, max_len 64, batch 32, {tc['steps']} steps over the gate's pairs in "
+        f"{tc['s']:.1f} s, {tc['ms_per_step']:.2f} ms a step (bound {tc['bound_ms']:.4f} "
+        f"ms by {tc['bound_by']}), loss {tc['first_loss']:.4f} -> {tc['final_loss']:.4f}")
+    geo = tr["geometry"]
+    gt = geo["timings"]
+    log(f"training geometry gate ({smi}): {geo['n']} rows of tuned_small_v1.npz's "
+        f"vectors, {geo['queries']} paraphrase queries: texts {gt['texts_s']:.1f} s, "
+        f"tokenizing {gt['tokenize_s']:.1f} s, encoder {gt['encode_s']:.1f} s, "
+        f"{gt['texts_per_s']:.0f} texts/s; recall@10 ann (K1 over bf16 rows) "
+        f"{geo['ann_recall']:.4f} against the exact bf16 scan (floor 0.95), "
+        f"{geo['ann_recall_f32']:.4f} against exact f32; int8 {geo['int8_recall']:.4f}, "
+        f"int8_eps {geo['int8_eps_recall']:.4f} (floor 0.99), score loss mean "
+        f"{geo['int8_score_loss_mean']:.6f}; ivf {geo['ivf_recall']:.4f} "
+        f"({geo['ivf_clusters']} clusters, nprobe {geo['ivf_nprobe']}, build "
+        f"{geo['ivf_build_s']:.1f} s); phase {geo['s']:.1f} s; K1 launched "
+        f"{geo['launches']} times, against its plain version at {geo['k1']['batch']} x "
+        f"{geo['k1']['rows']} rows |err| {geo['k1']['max_abs_err']:.3g}, near-tie rows "
+        f"{geo['k1']['near_tie_rows']}")
+    k1_err = max(k1_err, geo["k1"]["max_abs_err"])
+
     fused_scan.launches = 0
     range_topk.launches = 0
     details["int8"] = run_int8_served(device, 300_037, 30_011, 128, N_KNOWN)
@@ -3595,7 +3957,7 @@ def main(argv=None) -> int:
     details["vocab"] = vocab = run_vocab(device, *VOCAB_DOCS, VOCAB_HEAD, N_KNOWN, 128)
     log(f"lifecycle vocab ({smi}): build_and_apply over a store of "
         f"{vocab['documents']} documents of real text (windows of consecutive lines "
-        f"of this checkout's Markdown and Python sources), head {vocab['head']}: "
+        f"of the checkout's sources that the port's PRs leave as they are), head {vocab['head']}: "
         f"vocab.learn {vocab['learn_s']:.1f} s, vocab.apply {vocab['apply_s']:.1f} s, "
         f"{vocab['rows_rescattered']} rows re-scattered; every known document first; "
         f"K1 on the re-scattered lex tensor |err| {vocab['kernels']['max_abs_err']:.3g}; "
@@ -3700,11 +4062,12 @@ def main(argv=None) -> int:
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
          "launches": (serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"]
                       + lifecycle_launches["fused_scan"]
-                      + models["launches"]["fused_scan"]),
+                      + models["launches"]["fused_scan"] + geo["launches"]),
          "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
                                "writes": writes["launches"]["fused_scan"],
                                "lifecycle": lifecycle_launches["fused_scan"],
-                               "models": models["launches"]["fused_scan"]},
+                               "models": models["launches"]["fused_scan"],
+                               "training": geo["launches"]},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},

@@ -3,13 +3,18 @@ results: settings, feature hashing, featurization (pure Python and the
 native C++ featurizer), the stub embedder and the native RRF merge and HNSW
 graph, on seeded inputs, bit for bit.
 
-This module also builds the JAX package's HNSW library once before
-``tests/unit`` is collected (it is collected first: files are collected in
-name order). ``tests/unit/test_hnsw.py`` asks ``hnsw.available()`` while it
-is collected, and test workers that start together would each run g++ into
-the same file, so one could load it half written and skip that file's
-tests. Here the first worker builds it under a file lock and the others
-wait, then load the finished library.
+This module also builds the JAX package's native libraries (HNSW, the
+lexical featurizer, the RRF merge) once before ``tests/unit`` is collected
+(it is collected first: files are collected in name order). Each of those
+libraries is built by an unlocked ``g++ -o`` into one path in the package
+directory whenever the ``.so`` is missing or older than its source, and a
+failed build or load latches ``_build_failed`` for the life of the process.
+``tests/unit/test_hnsw.py`` and ``tests/unit/test_native.py`` ask
+``available()`` while they are collected, so test workers that start
+together would each run g++ into the same file; one could load it half
+written and lose the library for the whole run (its tests here then fail
+with "native lexhash unavailable"). Here the first worker builds all three
+under one file lock and the others wait, then load the finished libraries.
 """
 
 import dataclasses
@@ -40,11 +45,12 @@ from cadence_rag_tpu_torch.ops import hashing as thashing
 LOCK_TIMEOUT_S = 300.0
 
 
-def _build_jax_hnsw_once() -> None:
-    """``jhnsw.available()`` under an exclusive lock shared by every process
-    of this test run, so one process builds the library and the rest load
-    it. After LOCK_TIMEOUT_S without the lock, go on without it."""
-    path = Path(tempfile.gettempdir()) / "cadence_rag_tpu_hnsw_build.lock"
+def _build_jax_native_once() -> None:
+    """The JAX package's ``available()`` of HNSW, lexhash and RRF under an
+    exclusive lock shared by every process of this test run, so one process
+    builds the libraries and the rest load them. After LOCK_TIMEOUT_S
+    without the lock, go on without it."""
+    path = Path(tempfile.gettempdir()) / "cadence_rag_tpu_native_build.lock"
     with open(path, "w") as lock:
         deadline = time.monotonic() + LOCK_TIMEOUT_S
         while True:
@@ -56,12 +62,13 @@ def _build_jax_hnsw_once() -> None:
                     return
                 time.sleep(0.05)
         try:
-            jhnsw.available()
+            for lib in (jhnsw, jlexhash, jrrf):
+                lib.available()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
-_build_jax_hnsw_once()
+_build_jax_native_once()
 
 WORDS = ["gateway", "latency", "rollback", "kafka", "consumer", "lag",
          "tiering", "cluster", "retry", "budget", "azure", "ECONNRESET",

@@ -10,8 +10,8 @@ kernel's ``pallas_fused_topk`` does, where the JAX package's served lane
 (``approx_max_k``, exact on the CPU) keeps every row and orders ties by
 row. The paraphrase corpus is full of tied summaries, so a few of the 24
 answers differ in their tail.
-Without ``params_path`` the gate would train, and raises naming the
-training item. The Qwen3 harnesses (``qwen3_bench``,
+Without ``params_path`` the gate trains first (the training item, held to
+the JAX package's in ``test_torch_training_gates.py``). The Qwen3 harnesses (``qwen3_bench``,
 ``qwen3_coresident_bench``) run end to end at the tiny preset on the CPU
 and default to the card.
 """
@@ -48,11 +48,15 @@ def test_rerank_gate_over_the_committed_artifact_matches_jax(port_store, monkeyp
     assert port["neural_mrr"] > port["lexical_mrr"] + 0.10
 
 
-def test_rerank_gate_without_params_names_the_training_item():
+def test_rerank_gate_without_params_names_the_training_item(port_store):
+    """Without ``params_path`` the gate no longer refuses, naming the
+    training item: it builds the relevance triples and trains."""
     from cadence_rag_tpu_torch.evals.rerank_gate import run_gate
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        run_gate(device="cpu")
+    outcome = run_gate(device="cpu", steps=2, fixture_phase=False, min_margin=-1.0,
+                       min_mrr=0.0)
+    assert outcome["triples"] > 100 and outcome["final_loss"] is not None
+    assert outcome["two_register"] and outcome["queries"] > 0
 
 
 def _json_lines(capsys):

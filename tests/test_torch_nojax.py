@@ -16,9 +16,13 @@ that block jax too, the syncer, deletes over HTTP, a compaction under
 traffic), and its ``lifecycle`` phase (the rerank lane, a checkpoint saved
 under traffic and restored, the growth through the background migration),
 then the int8 batch and the lifecycle steps that bring their own stores: the
-vocab head over documents of the checkout's own text, the capped index
+vocab head over documents of the checkout's frozen text, the capped index
 against the uncapped one, the synchronous growth. ``ml_dtypes`` is blocked
-as well: the checkpoint's bf16 rows must not need it.
+as well: the checkpoint's bf16 rows must not need it. The third drives the
+training entry points on the CPU at a few steps: both training scripts'
+``main`` over a store of the paraphrase corpus, the paraphrase gate, the
+rerank gate's training branch and the geometry gate's ``main`` over the
+committed embedder at a small n.
 """
 
 import json
@@ -281,7 +285,7 @@ def test_port_serves_without_jax():
     assert out["restored_known"] == 28
     assert out["migrated"] == [4096, 8192, 8192, 44]
     # its steps on their own stores: the vocab head over 3,300 documents of
-    # the checkout's own text; the capped index against the uncapped one
+    # the checkout's frozen text; the capped index against the uncapped one
     # (three cold blocks, the tail ragged); the synchronous growth
     assert out["vocab"] == [3300, 256, 1, 3300, 8]
     assert out["cold"] == [2048, 2956, 3, 65, 8, 3]
@@ -305,3 +309,90 @@ def test_port_serves_without_jax():
     rows, model, err, atol = out["embed_service"]
     assert rows == 6 and model == "cadence-neural-embedder-128d2L-tuned"
     assert err <= atol == 1e-5
+
+
+TRAIN_SCRIPT = r"""
+import io, json, sys, tempfile
+from contextlib import redirect_stdout
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "cadence_rag_tpu")
+for name in BLOCKED:
+    sys.modules[name] = None
+from pathlib import Path
+
+import torch
+torch.set_num_threads(1)    # thousands of small ops beside other test workers
+
+from cadence_rag_tpu_torch.config import settings
+from cadence_rag_tpu_torch.core.index import get_index, reset_index
+from cadence_rag_tpu_torch.device import set_models_device
+from cadence_rag_tpu_torch.evals import geometry_gate, paraphrase_gate, rerank_gate
+from cadence_rag_tpu_torch.evals.train_corpus import (
+    generate_calls, ingest_synth_calls, train_eval_split)
+from cadence_rag_tpu_torch.models import embedder, reranker
+from cadence_rag_tpu_torch.scripts import train_embedder, train_reranker
+from cadence_rag_tpu_torch.store.db import reset_store
+
+work = Path(tempfile.mkdtemp())
+settings.store_path = str(work / "train.db")
+settings.embeddings_dim = 64
+settings.index_initial_capacity = 1024
+reset_store(); reset_index()
+get_index("cpu")
+set_models_device("cpu")
+ingest_synth_calls(generate_calls(train_eval_split(seed=0)[0][:40], seed=0))
+out = {}
+sys.argv = ["train_embedder", "--out", str(work / "e.npz"), "--steps", "2",
+            "--batch", "8", "--d-model", "32", "--n-layers", "1",
+            "--vocab-buckets", "1024", "--device", "cpu"]
+train_embedder.main()
+out["embedder"] = embedder.load_params(str(work / "e.npz"), "cpu")[1].d_model
+sys.argv = ["train_reranker", "--out", str(work / "r.npz"), "--steps", "2",
+            "--batch", "8", "--queries", "40", "--d-model", "32", "--n-layers", "1",
+            "--vocab-buckets", "1024", "--max-len", "32", "--device", "cpu"]
+with redirect_stdout(io.StringIO()) as printed:
+    train_reranker.main()
+out["reranker"] = [reranker.load_params(str(work / "r.npz"), "cpu")[1].d_model,
+                   printed.getvalue().strip().split()[-1]]
+reset_store(); reset_index()
+settings.embeddings_dim = 1024
+para = paraphrase_gate.run_gate(device="cpu", steps=3)
+out["paraphrase"] = [para["train_pairs"], para["queries"], para["stub_mrr"]]
+rr = rerank_gate.run_gate(device="cpu", steps=3, fixture_phase=False, min_margin=-1.0,
+                          min_mrr=0.0)
+out["rerank"] = [rr["triples"], rr["queries"], rr["final_loss"] is not None]
+sys.argv = ["geometry_gate", "--n", "2000", "--queries", "32", "--device", "cpu"]
+with redirect_stdout(io.StringIO()) as printed:
+    try:
+        geometry_gate.main()
+    except SystemExit as exc:
+        out["geometry_exit"] = exc.code
+out["geometry"] = json.loads(printed.getvalue().strip().splitlines()[-1])
+out["loaded"] = sorted(m for m in sys.modules
+                       if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
+print(json.dumps(out))
+"""
+
+
+def test_training_runs_without_jax():
+    """Both training scripts, the paraphrase gate, the rerank gate's
+    training branch and the geometry gate run with jax, jaxlib, ml_dtypes
+    and the JAX package blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["embedder"] == 32
+    assert out["reranker"][0] == 32 and 0.0 <= float(out["reranker"][1]) <= 1.0
+    pairs, queries, stub_mrr = out["paraphrase"]
+    assert pairs == 1325 and queries == 24 and stub_mrr == 0.5474   # 1024-d stub
+    triples, queries, trained = out["rerank"]
+    assert triples > 100 and queries == 24 and trained
+    geo = out["geometry"]
+    assert out["geometry_exit"] == 0 and geo["pass"] and geo["n"] == 2000
+    assert geo["source"] == "tuned-embedder-synthetic-domain"
+    assert geo["ann_recall"] >= 0.95

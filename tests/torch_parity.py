@@ -167,6 +167,19 @@ def port_store(tmp_store, tmp_path, monkeypatch):
 
 
 @pytest.fixture()
+def one_thread():
+    """One intra-op torch thread for the test: the training loops are
+    thousands of small ops, which a test worker sharing the machine's cores
+    with others runs far faster without parallel regions."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture()
 def set_both(monkeypatch):
     """Set one setting in both packages."""
     def put(name, value):
