@@ -30,10 +30,16 @@ of the storage-dtype rows into pinned memory (``CorpusIndex.
 checkpoint_arrays``; bf16 moves as its 2-byte pattern, reinterpreted
 through int16, never widened and never through ``ml_dtypes``) — and writes
 files only after the lock is released; with ``block=False`` the writing
-happens on a background thread. v1, generation-less v2 and v3 (the
-multi-host layout: heavy row blocks per process, scalars beside them)
-checkpoints restore; SAVING v3 needs the device mesh, which is not ported,
-and raises.
+happens on a background thread. A row-sharded index in one process saves
+v2 from its shards. v1, generation-less v2 and v3 checkpoints restore, into
+a sharded index too (the rows land in the shards that own them).
+
+Format v3 is the gang's (``_save_index_multihost``): every process writes
+the heavy row blocks (emb/lex/tech) of the shards it holds, one file a
+shard, ``{name}.g{G:04d}.r{start:010d}.npz``, through the op-log's mirrored
+"checkpoint_shards" op; the leader writes the per-row scalars (its host
+mirrors) and the lexical stats, polls for the followers' files, and flips
+``meta.json`` last. A shared filesystem is assumed.
 
 The IVF dense index is derived state and is NOT checkpointed; when
 DENSE_IVF_ENABLED is on, serve startup rebuilds it from the restored
@@ -124,24 +130,159 @@ def _decode_emb(raw: np.ndarray, kind: str, target_dtype):
 
 # ---------------------------------------------------------- v3 multihost ----
 
-V3_SAVE_NOT_PORTED = (
-    "saving a multi-host (format v3) checkpoint needs the device mesh and "
-    "the op-log (parallel/*), which are not ported yet (ROADMAP Queue 1 "
-    "item 7); the port saves format v2 and restores v1, v2 and v3"
-)
+def _heavy_layout(corpus) -> list:
+    """Global row blocks [(start, rows)] of the sharded arrays, trimmed to
+    the live count: every process derives the same layout, so the leader
+    (the files it waits for) and the followers (the files they write)
+    agree without negotiation."""
+    rows_per = corpus.shard_rows
+    blocks = []
+    for s in range(corpus.n_shards):
+        start = s * rows_per
+        rows = max(0, min(start + rows_per, corpus.count) - start)
+        if rows:
+            blocks.append((start, rows))
+    return blocks
 
 
-def _save_index_multihost(path: str, index, timeout_s: float = 600.0) -> Dict:
-    raise NotImplementedError(V3_SAVE_NOT_PORTED)
+def _heavy_name(corpus_name: str, gen: str, start: int) -> str:
+    return f"{corpus_name}.{gen}.r{start:010d}.npz"
 
 
 def write_local_heavy_shards(corpus, path: str, generation: int,
                              count: int) -> list:
-    raise NotImplementedError(V3_SAVE_NOT_PORTED)
+    """Write THIS process's row blocks of the heavy arrays (emb/lex/tech),
+    trimmed to ``count``; the leader calls it directly, followers through
+    the op-log's "checkpoint_shards". Files land atomically (tmp + rename)
+    so the leader can poll for them. -> the file names written"""
+    import os
+
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    gen = f"g{generation:04d}"
+    rows_per = corpus.shard_rows
+    written = []
+    for s, arrays in corpus.local_shards():
+        start = s * rows_per
+        rows = max(0, min(rows_per, count - start))
+        if rows <= 0:
+            continue
+        emb, lex, tech = (a[:rows].cpu() for a in arrays[:3])
+        if emb.dtype == torch.bfloat16:
+            emb = emb.view(torch.int16)
+        emb = emb.numpy()
+        payload = _encode_emb(emb.view(np.uint16) if emb.dtype == np.int16 else emb)
+        payload.update(lex=lex.numpy(), tech=tech.numpy(),
+                       start=np.array([start], dtype=np.int64))
+        final = out / _heavy_name(corpus.name, gen, start)
+        tmp = out / (final.name + f".tmp{os.getpid()}")
+        with open(tmp, "wb") as fh:  # np.savez appends .npz to paths
+            np.savez(fh, **payload)
+        os.replace(tmp, final)
+        written.append(final.name)
+    return written
 
 
-def _heavy_layout(corpus) -> list:
-    raise NotImplementedError(V3_SAVE_NOT_PORTED)
+def _save_index_multihost(path: str, index, timeout_s: float = 600.0) -> Dict:
+    """The leader's gang save (format v3): every process writes the heavy
+    row blocks it holds; the leader writes the per-row scalars (the host
+    mirrors exist on the leader alone), the lexical stats and, LAST, the
+    atomic meta flip. The "checkpoint_shards" op is emitted under each
+    corpus's lock, which pins the save to one point of the op stream."""
+    import os
+
+    from . import index as index_mod
+
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    save_lock = _save_lock(out)
+    save_lock.acquire()
+    try:
+        generation = 0
+        meta_path = out / "meta.json"
+        if meta_path.exists():
+            try:
+                generation = int(
+                    json.loads(meta_path.read_text()).get("generation", 0)
+                ) + 1
+            except (ValueError, OSError):
+                generation = 1
+        from ..ops.hashing import TECH_LAYOUT_VERSION
+
+        gen = f"g{generation:04d}"
+        # a save at this generation that died between the followers' files
+        # and the meta flip left files of this name: the poll below checks
+        # existence, so they go before any follower writes
+        for stale in out.glob(f"*.{gen}.*"):
+            try:
+                stale.unlink()
+            except OSError:
+                pass
+        meta: Dict = {
+            "format_version": MULTIHOST_FORMAT_VERSION,
+            "generation": generation,
+            "emb_storage_dtype": str(index.chunks.emb_dtype).replace("torch.", ""),
+            "tech_layout": TECH_LAYOUT_VERSION,
+            "embeddings_dim": int(settings.embeddings_dim),
+            "lexical_dim": int(settings.lexical_dim),
+            "tech_hash_slots": int(settings.tech_hash_slots),
+            "call_capacity": index.call_capacity,
+            "counts": {},
+            "heavy_files": {},
+        }
+        vocab, vocab_version = _active_vocab()
+        meta["lex_vocab_version"] = vocab_version
+        meta["lex_vocab_head"] = int(vocab.size) if vocab is not None else 0
+        meta["lex_vocab_sha"] = _vocab_digest(vocab)
+        if vocab is not None:
+            np.savez(out / f"lex_vocab.{gen}.npz", hashes=vocab,
+                     version=np.array([vocab_version]))
+        log = index_mod._oplog
+        expected: list = []
+        for corpus in (index.chunks, index.artifacts):
+            with corpus.lock:
+                count = corpus.count
+                if log is not None:
+                    log.emit("checkpoint_shards",
+                             {"path": str(out), "corpus": corpus.name,
+                              "generation": generation, "count": int(count)})
+                scalars = {
+                    "ids": corpus.h_ids[:count].copy(),
+                    "call": corpus.h_call[:count].copy(),
+                    "started": corpus.h_started[:count].copy(),
+                    "has_emb": corpus.h_has_emb[:count].copy(),
+                }
+                stats = corpus._hot_lexical_stats()
+                layout = _heavy_layout(corpus)
+                write_local_heavy_shards(corpus, str(out), generation, count)
+            np.savez(out / f"{corpus.name}.{gen}.scalars.npz", **scalars)
+            np.savez(out / f"{corpus.name}.{gen}.stats.npz",
+                     doc_freq=stats[0], dl_sum=np.array([stats[1]]))
+            names = [_heavy_name(corpus.name, gen, start) for start, _ in layout]
+            meta["counts"][corpus.name] = count
+            meta["heavy_files"][corpus.name] = names
+            expected.extend(names)
+        deadline = time.monotonic() + timeout_s
+        missing = [n for n in expected if not (out / n).exists()]
+        while missing:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"gang checkpoint: {len(missing)} shard file(s) never "
+                    f"appeared (a shared filesystem is required): {missing[:4]}")
+            time.sleep(0.05)
+            missing = [n for n in expected if not (out / n).exists()]
+        tmp = out / f".meta.{generation}.tmp"
+        tmp.write_text(json.dumps(meta, indent=2))
+        os.replace(tmp, out / "meta.json")
+        for stale in out.glob("*.npz"):
+            if f".{gen}." not in stale.name:
+                try:
+                    stale.unlink()
+                except OSError:
+                    pass
+        return meta
+    finally:
+        save_lock.release()
 
 
 def _restore_corpus_v3(
@@ -184,13 +325,18 @@ def save_index(
     index: Optional[DeviceIndexManager] = None,
     block: bool = True,
 ) -> Dict:
-    """Snapshot both corpora (format v2). With ``block=False`` the
+    """Snapshot both corpora (format v2; a gang saves v3, synchronously,
+    through ``_save_index_multihost``). With ``block=False`` the
     device->host snapshot is taken synchronously (consistent view) but file
     writes happen on a daemon thread; the returned meta carries the thread
     under "_writer" (join it to wait, e.g. in tests). The event ring
     gets an ``index.checkpoint_snapshot`` span per corpus (the time its lock
     was held) and one ``checkpoint.write`` span (the files)."""
     index = index or get_index()
+    from .index import _multiprocess
+
+    if _multiprocess():
+        return _save_index_multihost(path, index)
     out = Path(path)
     out.mkdir(parents=True, exist_ok=True)
     save_lock = _save_lock(out)

@@ -18,7 +18,22 @@ a dispatch of its own, beside the packed program. Rows past
 whose blocks stream through the same lane program; capacity growth may run
 as a background ``GrowthMigration``; ``checkpoint_arrays`` and
 ``load_state_streaming`` are the checkpoint's side (``core/checkpoint.py``).
-Not ported here: the multi-host op-log and the gang IVF build.
+
+Row sharding (``MESH_SHAPE=data:N``, ``parallel/``): a corpus built with a
+mesh holds one set of the six arrays per shard instead, in JAX's contiguous
+layout (shard ``i`` owns rows ``[i*cap/N, (i+1)*cap/N)``, on the mesh's
+device ``i``), so a v3 checkpoint's row blocks mean the same rows in both
+packages. Every write lands each row in the shard that owns its global
+position (``_write``); growth and compaction move rows to the shards the
+new layout gives them (``_relayout``); queries run each shard's lanes and
+merge the candidates (``parallel/sharded.py``). The cold tier and a mesh
+are mutually exclusive, and a sharded corpus grows synchronously: the
+background migration replays writes onto one device's buffers, and stands
+down under a mesh. In a multi-process gang (``DIST_COORDINATOR``) each
+process holds its own shards; the leader mirrors every device op to the
+followers over the op-log (``parallel/oplog.py``, ``set_oplog``), emitted
+under the corpus lock before the device work, and both corpora share one
+lock so the log is a valid serialization of the leader's order.
 
 Stream order. JAX arrays are immutable, so a queued program keeps the
 inputs it was given; here every writer (the batcher's engine thread, an
@@ -76,10 +91,35 @@ from ..ops.pack import (
     unflatten_lanes,
     unflatten_merged,
 )
+from ..parallel import sharded as sharded_mod
+from ..parallel.mesh import Mesh, gang_world, make_mesh
 from ..utils import events
 from .coldtier import ColdTier, collect_cold, merge_rect_lanes
 
 logger = logging.getLogger(__name__)
+
+# Multi-process serving (parallel/oplog.py): the leader mirrors every
+# device op below to the follower processes. set_oplog is called on the
+# LEADER only; followers replay through oplog._apply.
+_oplog = None
+
+
+def set_oplog(log) -> None:
+    global _oplog
+    _oplog = log
+
+
+def _multiprocess() -> bool:
+    """True when the index spans processes (a gang): every device op is
+    mirrored, both corpora share one lock, and the stand-downs apply."""
+    return gang_world() > 1
+
+
+def _np(x) -> np.ndarray:
+    """A host array of a numpy array or a tensor (the op-log's payloads)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 INT32_MIN = -2147483648
 INT32_MAX = 2147483647
@@ -366,7 +406,8 @@ class GrowthMigration:
 
 
 class CorpusIndex:
-    """One document class (chunks or artifact_chunks) on one device."""
+    """One document class (chunks or artifact_chunks) on one device, or
+    row-sharded over a mesh's ``data`` axis (``mesh``)."""
 
     def __init__(
         self,
@@ -378,6 +419,7 @@ class CorpusIndex:
         capacity: int,
         device: torch.device,
         emb_dtype: str = "bfloat16",
+        mesh: Optional[Mesh] = None,
     ):
         if emb_dtype not in _EMB_DTYPES:
             raise ValueError(
@@ -385,11 +427,27 @@ class CorpusIndex:
                 f"{sorted(_EMB_DTYPES)}"
             )
         self.name = name
+        self.mesh = mesh
+        # shards this process holds: {global shard: [the six arrays]}
+        self._shards: Dict[int, List[torch.Tensor]] = {}
+        self.n_shards = sharded_mod.data_shards(mesh) if mesh is not None else 1
+        if mesh is not None:
+            # merges, staging and derived state live on the first shard's
+            # device of this process
+            device = mesh.devices[mesh.local_positions()[0]]
         self.device = device
         self.dim = dim
         self.lex_dim = lex_dim
         self.tech_slots = tech_slots
         self.capacity = max(8, capacity)
+        if mesh is not None:
+            if self.capacity % self.n_shards:
+                raise ValueError(
+                    f"{name}: capacity {self.capacity} does not divide the "
+                    f"mesh's data axis ({self.n_shards})")
+            for s in mesh.local_positions():
+                sharded_mod._check_shard_rows(
+                    name, mesh.devices[s], self.capacity // self.n_shards)
         self.emb_dtype = _EMB_DTYPES[emb_dtype]
         self.count = 0
         # single writer; the lock makes buffer swaps (growth, restore)
@@ -415,6 +473,7 @@ class CorpusIndex:
         self.ivf: Optional[IvfState] = None
         self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
         self._ivf_rebuilding = False
+        self._ivf_rebuild_warned = False
         # bumped whenever row positions are renumbered (load_state,
         # compaction): an IVF
         # build that started before must not install its stale buckets
@@ -424,12 +483,19 @@ class CorpusIndex:
         # and lane-merged before RRF.
         self.max_device_rows = int(settings.index_max_device_rows or 0)
         self.cold: Optional[ColdTier] = None
-        if self.max_device_rows and settings.mesh_shape.strip():
-            raise RuntimeError(
-                "INDEX_MAX_DEVICE_ROWS and MESH_SHAPE are mutually "
-                "exclusive: shard the corpus over the mesh OR spill "
-                "to the host cold tier, not both"
-            )
+        if self.max_device_rows:
+            if mesh is not None:
+                raise RuntimeError(
+                    "INDEX_MAX_DEVICE_ROWS and MESH_SHAPE are mutually "
+                    "exclusive: shard the corpus over the mesh OR spill "
+                    "to the host cold tier, not both"
+                )
+            if _multiprocess():
+                raise RuntimeError(
+                    "INDEX_MAX_DEVICE_ROWS is single-process only (cold-"
+                    "tier ops are not mirrored over the op-log); use the "
+                    "data mesh for multi-host scale"
+                )
         # active background growth (GrowthMigration) or None; started by
         # the manager's growth planner once the corpus nears its capacity
         self._migration: Optional[GrowthMigration] = None
@@ -441,36 +507,160 @@ class CorpusIndex:
         # capacity a running migration is heading for
         self._grow_planner = None
 
+    def _array_spec(self, attr: str, rows: int):
+        return {
+            "emb": ((rows, self.dim), self.emb_dtype),
+            "lex": ((rows, self.lex_dim), torch.int8),
+            "tech": ((rows, self.tech_slots), torch.int32),
+            "call_idx": ((rows,), torch.int32),
+            "started": ((rows,), torch.int32),
+            "has_emb": ((rows,), torch.bool),
+        }[attr]
+
     def _alloc_array(self, attr: str, cap: int,
-                     fill_from: int = 0) -> torch.Tensor:
+                     fill_from: int = 0, device=None) -> torch.Tensor:
         """One empty device array of ``cap`` rows: zeros, and ``started``
         all ``INT32_MIN`` (no row valid). Rows below ``fill_from`` are left
         uninitialised for a caller that overwrites them."""
-        shape, dtype = {
-            "emb": ((cap, self.dim), self.emb_dtype),
-            "lex": ((cap, self.lex_dim), torch.int8),
-            "tech": ((cap, self.tech_slots), torch.int32),
-            "call_idx": ((cap,), torch.int32),
-            "started": ((cap,), torch.int32),
-            "has_emb": ((cap,), torch.bool),
-        }[attr]
+        shape, dtype = self._array_spec(attr, cap)
+        device = self.device if device is None else device
         fill = INT32_MIN if attr == "started" else 0
         if fill_from:
-            out = torch.empty(shape, dtype=dtype, device=self.device)
+            out = torch.empty(shape, dtype=dtype, device=device)
             out[fill_from:].fill_(fill)
             return out
-        return torch.full(shape, fill, dtype=dtype, device=self.device)
+        return torch.full(shape, fill, dtype=dtype, device=device)
 
     def _alloc_arrays(self, cap: int) -> Tuple[torch.Tensor, ...]:
         return tuple(self._alloc_array(attr, cap) for attr in DEVICE_ARRAYS)
 
+    def _alloc_shards(self, cap: int) -> Dict[int, List[torch.Tensor]]:
+        """This process's shards of a layout of ``cap`` rows, empty."""
+        rows = cap // self.n_shards
+        return {s: [self._alloc_array(attr, rows, device=self.mesh.devices[s])
+                    for attr in DEVICE_ARRAYS]
+                for s in self.mesh.local_positions()}
+
     def _alloc_device(self, cap: int) -> None:
+        if self.mesh is not None:
+            self._shards = self._alloc_shards(cap)
+            (self.emb, self.lex, self.tech, self.call_idx, self.started,
+             self.has_emb) = (None,) * len(DEVICE_ARRAYS)
+            return
         (self.emb, self.lex, self.tech, self.call_idx, self.started,
          self.has_emb) = self._alloc_arrays(cap)
 
     def device_arrays(self) -> Tuple[torch.Tensor, ...]:
+        if self.mesh is not None:
+            raise RuntimeError(
+                f"{self.name} is row-sharded: its arrays are per shard "
+                "(local_shards())")
         return (self.emb, self.lex, self.tech, self.call_idx, self.started,
                 self.has_emb)
+
+    # -- row sharding -------------------------------------------------------
+    @property
+    def shard_rows(self) -> int:
+        return self.capacity // self.n_shards
+
+    def local_shards(self) -> List[Tuple[int, Tuple[torch.Tensor, ...]]]:
+        """[(global shard, its six arrays)] of the shards this process holds
+        (the whole corpus as shard 0 when unsharded)."""
+        if self.mesh is None:
+            return [(0, self.device_arrays())]
+        return [(s, tuple(bufs)) for s, bufs in sorted(self._shards.items())]
+
+    def _shard_cap(self, cap: int) -> int:
+        """``cap`` rounded up to a layout the mesh can shard: a multiple of
+        the shard count, and on CUDA of K1's block per shard."""
+        if self.mesh is None:
+            return cap
+        from ..ops.fused_scan import BLOCK_ROWS
+
+        unit = self.n_shards * (BLOCK_ROWS if any(
+            self.mesh.devices[s].type == "cuda"
+            for s in self.mesh.local_positions()) else 1)
+        return -(-cap // unit) * unit
+
+    def _emit(self, op: str, statics: Optional[Dict] = None,
+              arrays: Optional[Dict] = None) -> None:
+        """Mirror a device op to the gang's followers (leader only)."""
+        if _oplog is not None:
+            _oplog.emit(op, {"corpus": self.name, **(statics or {})}, arrays)
+
+    def _relayout(self, cap: int, src: np.ndarray) -> None:
+        """Replace the shards with a layout of ``cap`` rows whose row ``j``
+        holds the current row ``src[j]`` (``src`` ascending): growth keeps
+        every row (``src`` = 0..count-1), compaction keeps the live ones.
+        Each (old shard, new shard) pair moves one block; in a gang a block
+        whose shards live in two processes goes from one to the other
+        (every process walks the same pairs in the same order)."""
+        from ..parallel import mesh as mesh_mod
+
+        old, old_rows = self._shards, self.shard_rows
+        new_rows = cap // self.n_shards
+        new = self._alloc_shards(cap)
+        rank, owner = self.mesh.rank, self.mesh.processes
+        src = np.asarray(src, dtype=np.int64)
+        for t in range(self.n_shards):
+            t0, t1 = t * new_rows, min((t + 1) * new_rows, src.shape[0])
+            for s in range(self.n_shards):
+                a = max(t0, int(np.searchsorted(src, s * old_rows)))
+                b = min(t1, int(np.searchsorted(src, (s + 1) * old_rows)))
+                if a >= b:
+                    continue
+                if rank not in (owner[s], owner[t]):
+                    continue
+                if rank == owner[s]:
+                    local = src[a:b] - s * old_rows
+                    if local[-1] - local[0] == b - a - 1:
+                        block = [buf[int(local[0]):int(local[-1]) + 1]
+                                 for buf in old[s]]
+                    else:
+                        idx = torch.from_numpy(local).to(old[s][0].device)
+                        block = [buf.index_select(0, idx) for buf in old[s]]
+                    if owner[t] != rank:
+                        for piece in block:
+                            mesh_mod.send_to(piece, owner[t])
+                        continue
+                else:
+                    block = [mesh_mod.recv_from(
+                        *self._array_spec(attr, b - a), self.mesh.devices[t],
+                        owner[s]) for attr in DEVICE_ARRAYS]
+                for buf, piece in zip(new[t], block):
+                    buf[a - t0:b - t0].copy_(piece)
+        self._shards = new
+        self.capacity = cap
+
+    def _gather_rows(self, attr: str, n: int) -> Optional[torch.Tensor]:
+        """The first ``n`` rows of one array, whole, on this process's
+        device; in a gang on the leader only (the others send their shards'
+        rows to it and get None)."""
+        from ..parallel import mesh as mesh_mod
+
+        if self.mesh is None:
+            return getattr(self, attr)[:n]
+        i = DEVICE_ARRAYS.index(attr)
+        rank, owner, rows = self.mesh.rank, self.mesh.processes, self.shard_rows
+        parts = []
+        for s in range(self.n_shards):
+            m = min(rows, n - s * rows)
+            if m <= 0:
+                break
+            if rank == owner[s]:
+                piece = self._shards[s][i][:m]
+                if rank == 0:
+                    parts.append(piece.to(self.device))
+                else:
+                    mesh_mod.send_to(piece, 0)
+            elif rank == 0:
+                parts.append(mesh_mod.recv_from(
+                    *self._array_spec(attr, m), self.device, owner[s]))
+        if rank != 0:
+            return None
+        if not parts:
+            return self._alloc_array(attr, 0)
+        return torch.cat(parts) if len(parts) > 1 else parts[0].clone()
 
     @property
     def avgdl(self) -> float:
@@ -488,16 +678,15 @@ class CorpusIndex:
         """Rows the cold tier holds (tombstoned ones included)."""
         return self.cold.count if self.cold is not None else 0
 
-    def _encode_emb(self, rows: np.ndarray) -> torch.Tensor:
-        """Host rows -> storage-dtype tensor on the device. int8 storage
+    def _encode_emb_host(self, rows) -> torch.Tensor:
+        """Host rows -> storage-dtype tensor, on the host (a tensor already
+        in the storage dtype passes through where it is). int8 storage
         quantizes unit vectors as round(x*127) (the dense lane restores the
         scale); bf16 rows from a JAX checkpoint (ml_dtypes bfloat16) are
-        reinterpreted through int16, never cast; f32 rows round to bf16.
-        A tensor (a checkpoint's decoded bf16 rows) passes through when it
-        is in the storage dtype."""
+        reinterpreted through int16, never cast; f32 rows round to bf16."""
         if isinstance(rows, torch.Tensor):
             if rows.dtype == self.emb_dtype:
-                return rows.to(self.device)
+                return rows
             rows = rows.float().cpu().numpy()
         rows = np.asarray(rows)
         if self.emb_dtype == torch.int8:
@@ -505,12 +694,16 @@ class CorpusIndex:
                 rows = np.clip(
                     np.rint(rows.astype(np.float32) * 127.0), -127, 127
                 ).astype(np.int8)
-            t = _from_host(rows)
-        elif rows.dtype.name == "bfloat16" and rows.dtype.itemsize == 2:
-            t = _from_host(rows.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = _from_host(rows.astype(np.float32, copy=False)).to(torch.bfloat16)
-        return t.to(self.device)
+            return _from_host(rows)
+        if rows.dtype.name == "bfloat16" and rows.dtype.itemsize == 2:
+            return _from_host(rows.view(np.int16)).view(torch.bfloat16)
+        return _from_host(rows.astype(np.float32, copy=False)).to(torch.bfloat16)
+
+    def _encode_emb(self, rows: np.ndarray) -> torch.Tensor:
+        """``_encode_emb_host`` on the device. A tensor (a checkpoint's
+        decoded bf16 rows) passes through when it is in the storage
+        dtype."""
+        return self._encode_emb_host(rows).to(self.device)
 
     def _put(self, arr, dtype: torch.dtype) -> torch.Tensor:
         if isinstance(arr, torch.Tensor):
@@ -519,13 +712,20 @@ class CorpusIndex:
 
     # -- growth ---------------------------------------------------------
     def _grow_to(self, cap: int) -> None:
+        """Reallocate at ``cap`` rows and copy the rows over; sharded, the
+        rows move to the shards of the new layout (contiguous blocks of
+        ``cap``): in a gang across processes too."""
         with events.timed("index.grow", corpus=self.name,
                           old_cap=int(self.capacity), cap=int(cap)):
-            old = self.device_arrays()
-            self.capacity = cap
-            self._alloc_device(cap)
-            for new, prev in zip(self.device_arrays(), old):
-                new[: prev.shape[0]].copy_(prev)
+            self._emit("grow", {"cap": int(cap)})
+            if self.mesh is not None:
+                self._relayout(cap, np.arange(self.count))
+            else:
+                old = self.device_arrays()
+                self.capacity = cap
+                self._alloc_device(cap)
+                for new, prev in zip(self.device_arrays(), old):
+                    new[: prev.shape[0]].copy_(prev)
             self._grow_host_mirrors(cap)
 
     def _grow_host_mirrors(self, cap: int) -> None:
@@ -573,12 +773,16 @@ class CorpusIndex:
             cap = self.capacity
             while cap < need:
                 cap *= 2
-        self._grow_to(max(cap, need))
+        self._grow_to(self._shard_cap(max(cap, need)))
 
     def start_migration(self, new_cap: int) -> bool:
         """Begin background growth toward ``new_cap`` (idempotent). Hot
-        tier only: a corpus with a cold tier caps its device rows."""
-        if self.max_device_rows or not settings.growth_migration_enabled:
+        tier only: a corpus with a cold tier caps its device rows. A
+        row-sharded corpus stands down to the synchronous growth: growth
+        moves rows between shards (and processes), which the journal's
+        replay onto one device's buffers does not."""
+        if (self.max_device_rows or self.mesh is not None
+                or not settings.growth_migration_enabled):
             return False
         with self.lock:
             if new_cap <= self.capacity:
@@ -601,13 +805,47 @@ class CorpusIndex:
             self._migration.cancel()
             self._migration = None
 
-    def _write(self, op: str, args: Tuple) -> None:
+    def _write(self, op: str, args: Tuple,
+               pos: Optional[np.ndarray] = None) -> None:
         """One in-place row write (``_apply_op``) on the live arrays,
-        journaled for a running growth migration. Caller holds the lock."""
+        journaled for a running growth migration. Caller holds the lock.
+        Sharded, each row lands in the shard that owns its global position
+        (``pos``: the host positions of a scatter or a tombstone); rows of
+        shards another process holds are that process's to write."""
+        if self.mesh is not None:
+            self._write_shards(op, args, pos)
+            return
         _apply_op(self.device_arrays(), op, args)
         mig = self._migration
         if mig is not None:
             mig.journal_op(op, args)
+
+    def _write_shards(self, op: str, args: Tuple, pos) -> None:
+        rows = self.shard_rows
+        if op == "write_slabs":
+            start, *tensors = args
+            end = start + tensors[0].shape[0]
+            for s, bufs in self._shards.items():
+                a, b = max(start, s * rows), min(end, (s + 1) * rows)
+                if a < b:
+                    dev = bufs[0].device
+                    _apply_op(bufs, op, (a - s * rows, *(
+                        t[a - start:b - start].to(dev) for t in tensors)))
+            return
+        pos = np.asarray(pos, dtype=np.int64)
+        payload = args[1:]
+        for s, bufs in self._shards.items():
+            sel = np.flatnonzero((pos >= s * rows) & (pos < (s + 1) * rows))
+            if not sel.size:
+                continue
+            dev = bufs[0].device
+            local = torch.from_numpy(pos[sel] - s * rows).to(dev)
+            if sel.size < pos.size:
+                pick = torch.from_numpy(sel).to(payload[0].device) if payload else None
+                picked = [t.index_select(0, pick).to(dev) for t in payload]
+            else:
+                picked = [t.to(dev) for t in payload]
+            _apply_op(bufs, op, (local, *picked))
 
     # -- ingest -----------------------------------------------------------
     def insert(self, rows: Sequence[DocRow]) -> None:
@@ -690,15 +928,14 @@ class CorpusIndex:
             if r.embedding is not None:
                 emb[i] = r.embedding
                 has[i] = True
-        self._write("write_slabs", (
-            start,
-            self._encode_emb(emb),
-            self._put(np.stack([r.lex_sig for r in rows]), torch.int8),
-            self._put(np.stack([r.tech for r in rows]), torch.int32),
-            self._put(np.array([r.call_seq for r in rows]), torch.int32),
-            self._put(np.array([r.started_sec for r in rows]), torch.int32),
-            self._put(has, torch.bool),
-        ))
+        self._write_slab(start, start + n, {
+            "emb": self._encode_emb_host(emb),
+            "lex": np.stack([r.lex_sig for r in rows]).astype(np.int8),
+            "tech": np.stack([r.tech for r in rows]).astype(np.int32),
+            "call": np.array([r.call_seq for r in rows], dtype=np.int32),
+            "started": np.array([r.started_sec for r in rows], dtype=np.int32),
+            "has": has,
+        })
         for i, r in enumerate(rows):
             pos = start + i
             self.h_ids[pos] = r.doc_id
@@ -712,6 +949,41 @@ class CorpusIndex:
         self.count += n
         if self.ivf is not None:
             self._ivf_append_overflow(np.arange(start, start + n, dtype=np.int32))
+
+    def _write_slab(self, start: int, count_after: int,
+                    slab: Dict[str, object]) -> None:
+        """Write rows ``[start, start + m)`` from host arrays (``emb`` in the
+        storage dtype, the op-log's "write_slabs" payload): mirrored to the
+        gang, then uploaded and written. Caller holds the lock."""
+        self._emit("write_slabs", {"start": int(start),
+                                   "count_after": int(count_after)}, slab)
+        self._write("write_slabs", (
+            start,
+            self._encode_emb(slab["emb"]),
+            self._put(slab["lex"], torch.int8),
+            self._put(slab["tech"], torch.int32),
+            self._put(slab["call"], torch.int32),
+            self._put(slab["started"], torch.int32),
+            self._put(slab["has"], torch.bool),
+        ))
+
+    def _scatter(self, op: str, pos: np.ndarray, vals=None) -> None:
+        """A row scatter (or, without ``vals``, a tombstone) at host
+        positions: mirrored to the gang, then written. Caller holds the
+        lock."""
+        pos = np.asarray(pos)
+        arrays = {"pos": pos.astype(np.int32)}
+        if vals is not None:
+            arrays["vals"] = vals
+        self._emit(op, None, arrays)
+        idx = self._put(pos.astype(np.int64), torch.int64)
+        if vals is None:
+            self._write(op, (idx,), pos)
+        elif op == "scatter_emb":
+            self._write(op, (idx, self._encode_emb(vals)), pos)
+        else:
+            dtype = torch.int8 if op == "scatter_lex" else torch.int32
+            self._write(op, (idx, self._put(vals, dtype)), pos)
 
     def position_of(self, doc_ids: Sequence[int]) -> np.ndarray:
         """Row position per doc id, -1 for an id this corpus lacks."""
@@ -737,8 +1009,8 @@ class CorpusIndex:
             if not keep.any():
                 return cold_n
             pos = pos[keep]
-            self._write("scatter_emb", (
-                self._put(pos, torch.int64), self._encode_emb(vectors[keep])))
+            self._scatter("scatter_emb", pos,
+                          self._encode_emb_host(vectors[keep]))
             self.emb_rows += int((~self.h_has_emb[pos]).sum())
             self.h_has_emb[pos] = True
             return int(pos.shape[0]) + cold_n
@@ -751,10 +1023,10 @@ class CorpusIndex:
 
     def _live_positions(self, doc_ids: Sequence[int], rows: np.ndarray,
                         positions: Optional[np.ndarray] = None):
-        """(device index tensor, rows) of the ids this corpus holds live."""
+        """(host positions, rows) of the ids this corpus holds live."""
         pos = positions if positions is not None else self.position_of(doc_ids)
         keep = pos >= 0
-        return self._put(pos[keep], torch.int64), rows[keep]
+        return pos[keep], rows[keep]
 
     def set_tech(self, doc_ids: Sequence[int], tech_rows: np.ndarray) -> int:
         """Replace the tech-token slots of existing rows (tech-token
@@ -768,11 +1040,10 @@ class CorpusIndex:
                 if cmask.any():
                     cold_n = self.cold.set_tech(
                         cold_pos[cmask], tech_rows[cmask])
-            idx, vals = self._live_positions(doc_ids, tech_rows)
-            if idx.numel():
-                self._write("scatter_tech",
-                            (idx, self._put(vals, torch.int32)))
-            return int(idx.numel()) + cold_n
+            pos, vals = self._live_positions(doc_ids, tech_rows)
+            if pos.size:
+                self._scatter("scatter_tech", pos, vals)
+            return int(pos.size) + cold_n
 
     def set_lex(
         self, doc_ids: Sequence[int], lex_rows: np.ndarray,
@@ -783,11 +1054,11 @@ class CorpusIndex:
         df table with ``replace_doc_freq`` once every row is rewritten.
         ``positions`` skips the id lookup (-1 = not live)."""
         with self.lock:
-            idx, vals = self._live_positions(
+            pos, vals = self._live_positions(
                 doc_ids, np.asarray(lex_rows, dtype=np.int8), positions)
-            if idx.numel():
-                self._write("scatter_lex", (idx, self._put(vals, torch.int8)))
-            return int(idx.numel())
+            if pos.size:
+                self._scatter("scatter_lex", pos, vals)
+            return int(pos.size)
 
     def set_lex_ids(
         self, doc_ids: Sequence[int], lex_rows: np.ndarray
@@ -848,7 +1119,7 @@ class CorpusIndex:
             if not keep.any():
                 return cold_n
             pos = pos_all[keep]
-            self._write("tombstone", (self._put(pos, torch.int64),))
+            self._scatter("tombstone", pos)
             self.emb_rows -= int(self.h_has_emb[pos].sum())
             self.h_started[pos] = INT32_MIN
             self.h_has_emb[pos] = False
@@ -916,16 +1187,11 @@ class CorpusIndex:
             n = self.count
             live = np.flatnonzero(self.h_started[:n] != INT32_MIN)
             out_rows = int(live.shape[0])
-            cap = max(_next_pow2(max(out_rows, 8)),
-                      int(settings.index_initial_capacity))
-            take = self._put(live, torch.int64)
-            for attr in DEVICE_ARRAYS:
-                dst = self._alloc_array(attr, cap)
-                torch.index_select(getattr(self, attr), 0, take,
-                                   out=dst[:out_rows])
-                setattr(self, attr, dst)
-            self.capacity = cap
-            self._cancel_migration_locked()
+            cap = self._shard_cap(max(_next_pow2(max(out_rows, 8)),
+                                      int(settings.index_initial_capacity)))
+            self._emit("compact", {"out_rows": out_rows, "cap": int(cap)},
+                       {"live": live.astype(np.int32)})
+            self.apply_compact_device(live, out_rows, cap)
             for attr in HOST_MIRRORS:
                 old = getattr(self, attr)
                 mirror = np.zeros(cap, dtype=old.dtype)
@@ -936,11 +1202,34 @@ class CorpusIndex:
             self._id_to_pos = {
                 int(d): p for p, d in enumerate(self.h_ids[:out_rows])}
             self.emb_rows = int(self.h_has_emb[:out_rows].sum())
-            self.count = out_rows
             self.tombstones = 0
-            self.ivf = None
-            self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
-            self._pos_gen += 1
+
+    def apply_compact_device(self, live: np.ndarray, out_rows: int,
+                             cap: int) -> None:
+        """The device side of compaction: the rows ``live[:out_rows]``
+        (ascending) packed to the front of arrays of ``cap`` rows; the IVF
+        index is dropped and ``_pos_gen`` moves. The one implementation the
+        leader (``compact``) and a gang's followers (the op-log's
+        "compact") run. Unsharded, each array is gathered straight into the
+        front of its new allocation and the old one released before the
+        next is allocated, so the peak is the old arrays plus the largest
+        new one; sharded, the rows move to the new layout's shards."""
+        live = np.asarray(live)[:out_rows].astype(np.int64)
+        if self.mesh is not None:
+            self._relayout(cap, live)
+        else:
+            take = self._put(live, torch.int64)
+            for attr in DEVICE_ARRAYS:
+                dst = self._alloc_array(attr, cap)
+                torch.index_select(getattr(self, attr), 0, take,
+                                   out=dst[:out_rows])
+                setattr(self, attr, dst)
+            self.capacity = cap
+        self.count = out_rows
+        self.ivf = None
+        self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
+        self._cancel_migration_locked()
+        self._pos_gen += 1
 
     # -- planning ---------------------------------------------------------
     def estimate_candidates(
@@ -1014,17 +1303,25 @@ class CorpusIndex:
         exactly on load; the checkpoint moves the 2-byte pattern instead
         (``checkpoint_arrays``)."""
         with self.lock:
+            self._single_process_only("state_arrays")
             c = self.count
-            emb = self.emb[:c]
+            emb = self._gather_rows("emb", c)
             # copies, never views: on the CPU ``_to_host`` shares the live
             # tensor's memory, which later writes change in place
             return {
                 "emb": _to_host(emb.clone() if emb.dtype == torch.int8
                                 else emb.float()),
-                "lex": _to_host(self.lex[:c].clone()),
-                "tech": _to_host(self.tech[:c].clone()),
+                "lex": _to_host(self._gather_rows("lex", c).clone()),
+                "tech": _to_host(self._gather_rows("tech", c).clone()),
                 **self._scalar_state(c),
             }
+
+    def _single_process_only(self, what: str) -> None:
+        if _multiprocess():
+            raise RuntimeError(
+                f"{self.name}.{what}: the device arrays span processes; a "
+                "gang saves through core/checkpoint.save_index (format v3, "
+                "each process writing its own row blocks)")
 
     def checkpoint_arrays(self) -> Dict[str, np.ndarray]:
         """``state_arrays`` for ``core/checkpoint.save_index``: the rows in
@@ -1040,12 +1337,11 @@ class CorpusIndex:
         cuda = self.device.type == "cuda"
 
         def host_buffers(c: int) -> Dict[str, torch.Tensor]:
-            return {
-                attr: torch.empty((c,) + tuple(getattr(self, attr).shape[1:]),
-                                  dtype=getattr(self, attr).dtype,
-                                  pin_memory=True)
-                for attr in ("emb", "lex", "tech")
-            }
+            out = {}
+            for attr in ("emb", "lex", "tech"):
+                shape, dtype = self._array_spec(attr, c)
+                out[attr] = torch.empty(shape, dtype=dtype, pin_memory=True)
+            return out
 
         bufs = None
         if cuda:
@@ -1054,17 +1350,24 @@ class CorpusIndex:
             with events.timed("index.checkpoint_pinned_alloc", corpus=self.name):
                 bufs = host_buffers(self.count)
         with self.lock:
+            self._single_process_only("checkpoint_arrays")
             t0 = time.monotonic()
             c = self.count
             if cuda:
                 if bufs["lex"].shape[0] != c:
                     bufs = host_buffers(c)   # rows came or went meanwhile
-                for attr, host in bufs.items():
-                    host.copy_(getattr(self, attr)[:c], non_blocking=True)
+                rows = self.shard_rows
+                for s, arrays in self.local_shards():
+                    m = min(rows, c - s * rows)
+                    for attr, host in bufs.items():
+                        if m > 0:
+                            host[s * rows:s * rows + m].copy_(
+                                arrays[DEVICE_ARRAYS.index(attr)][:m],
+                                non_blocking=True)
                 copied = torch.cuda.Event()
                 copied.record(torch.cuda.current_stream(self.device))
             else:
-                bufs = {attr: getattr(self, attr)[:c].clone()
+                bufs = {attr: self._gather_rows(attr, c).clone()
                         for attr in ("emb", "lex", "tech")}
             out = self._scalar_state(c)
             events.record("index.checkpoint_snapshot",
@@ -1112,8 +1415,9 @@ class CorpusIndex:
             self._ivf_overflow_host = np.zeros(0, dtype=np.int32)
             self._cancel_migration_locked()
             self._pos_gen += 1
-            cap = max(self.capacity, _next_pow2(max(n, 8)))
+            cap = self._shard_cap(max(self.capacity, _next_pow2(max(n, 8))))
             self.capacity = cap
+            self._emit("alloc", {"cap": int(cap)})
             self._alloc_device(cap)
             self.h_ids = np.zeros(cap, dtype=np.int64)
             self.h_call = np.zeros(cap, dtype=np.int32)
@@ -1131,17 +1435,12 @@ class CorpusIndex:
                 call = shard["call"].astype(np.int32)
                 started = shard["started"].astype(np.int32)
                 has = shard["has_emb"].astype(bool)
-                _apply_op(self.device_arrays(), "write_slabs", (
-                    off,
-                    self._encode_emb(shard["emb"]),
-                    self._put(shard["lex"].astype(np.int8, copy=False),
-                              torch.int8),
-                    self._put(shard["tech"].astype(np.int32, copy=False),
-                              torch.int32),
-                    self._put(call, torch.int32),
-                    self._put(started, torch.int32),
-                    self._put(has, torch.bool),
-                ))
+                self._write_slab(off, off + m, {
+                    "emb": self._encode_emb_host(shard["emb"]),
+                    "lex": shard["lex"].astype(np.int8, copy=False),
+                    "tech": shard["tech"].astype(np.int32, copy=False),
+                    "call": call, "started": started, "has": has,
+                })
                 self.h_ids[off:off + m] = shard["ids"]
                 self.h_call[off:off + m] = call
                 self.h_started[off:off + m] = started
@@ -1169,12 +1468,25 @@ class CorpusIndex:
     def _ivf_append_overflow(self, positions: np.ndarray) -> None:
         self._ivf_overflow_host = np.concatenate(
             [self._ivf_overflow_host, positions.astype(np.int32)])
+        padded = _padded_overflow(self._ivf_overflow_host)
+        # the overflow tail is an input of every process's probed query:
+        # a gang's followers take the leader's
+        self._emit("ivf_overflow", {"count": len(self._ivf_overflow_host)},
+                   {"padded": padded})
         self.ivf = dataclasses.replace(
             self.ivf,
-            overflow=self._put(_padded_overflow(self._ivf_overflow_host),
-                               torch.int32),
+            overflow=self._put(padded, torch.int32),
             overflow_count=len(self._ivf_overflow_host),
         )
+
+    def gang_set_ivf_overflow(self, padded: np.ndarray, count: int) -> None:
+        """A follower's side of "ivf_overflow" (parallel/oplog._apply)."""
+        with self.lock:
+            padded = np.asarray(padded, dtype=np.int32)
+            self._ivf_overflow_host = padded[:count].copy()
+            self.ivf = dataclasses.replace(
+                self.ivf, overflow=self._put(padded, torch.int32),
+                overflow_count=int(count))
 
     def _ivf_plan(
         self, n: int, n_clusters: Optional[int], nprobe: Optional[int]
@@ -1203,22 +1515,32 @@ class CorpusIndex:
         under the lock, the clustering runs outside it, and the finished
         state installs atomically; rows inserted meanwhile join the
         exact-scanned overflow tail. A renumbering of rows while k-means
-        ran (``_pos_gen`` moved) aborts the build."""
+        ran (``_pos_gen`` moved) aborts the build. A sharded corpus reads
+        every shard's rows into the one k-means (the same build as the
+        unsharded index's). In a gang the build is one mirrored op
+        ("build_ivf") that holds the shared lock throughout: the leader
+        gathers the rows and clusters them, and every process installs the
+        leader's centroids and assignments (``gang_build_install_ivf``)."""
+        if _multiprocess():
+            with self.lock:
+                if self.count == 0:
+                    raise RuntimeError(
+                        f"{self.name}: empty corpus, nothing to build")
+                n = self.count
+                clusters, probe = self._ivf_plan(n, n_clusters, nprobe)
+                self._emit("build_ivf", {"n": int(n), "clusters": int(clusters),
+                                         "nprobe": int(probe), "seed": int(seed)})
+                return self.gang_build_install_ivf(n, clusters, probe, int(seed))
         with self.lock:
             if self.count == 0:
                 raise RuntimeError(f"{self.name}: empty corpus, nothing to build")
             n = self.count
             pos_gen = self._pos_gen
-            snapshot = self.emb[:n].clone()
-        if self.emb_dtype == torch.int8:
-            # k-means runs in float space (float centroids cast back to int8
-            # degenerate); the probed scan widens int8 rows and rescales
-            snapshot = snapshot.float() / 127.0
+            snapshot = self._gather_rows("emb", n)
+            if self.mesh is None:
+                snapshot = snapshot.clone()
         clusters, probe = self._ivf_plan(n, n_clusters, nprobe)
-        gen = torch.Generator(device=snapshot.device)
-        gen.manual_seed(int(seed))
-        centroids, assign = kmeans(snapshot, n_clusters=clusters, iters=10,
-                                   generator=gen)
+        centroids, assign = self._kmeans(snapshot, clusters, seed)
         del snapshot
         bucket_cap = max(8, int(2.0 * n / clusters))
         buckets_np, overflow_np = build_buckets(
@@ -1244,19 +1566,66 @@ class CorpusIndex:
             )
             return self.ivf
 
+    def _kmeans(self, snapshot: torch.Tensor, clusters: int, seed: int):
+        if self.emb_dtype == torch.int8:
+            # k-means runs in float space (float centroids cast back to int8
+            # degenerate); the probed scan widens int8 rows and rescales
+            snapshot = snapshot.float() / 127.0
+        gen = torch.Generator(device=snapshot.device)
+        gen.manual_seed(int(seed))
+        return kmeans(snapshot, n_clusters=clusters, iters=10, generator=gen)
+
+    def gang_build_install_ivf(self, n: int, clusters: int, probe: int,
+                               seed: int) -> IvfState:
+        """The gang's IVF build: the leader (rank 0) gathers the first
+        ``n`` rows from every process and runs the k-means; the centroids
+        and assignments are broadcast, and every process packs the same
+        buckets. The leader calls this inside ``build_ivf`` (after emitting
+        "build_ivf"), the followers from the op-log. A CUDA k-means sums in
+        no fixed order, so the processes take the leader's result rather
+        than each clustering alone."""
+        from ..parallel import mesh as mesh_mod
+
+        with self.lock:
+            snapshot = self._gather_rows("emb", n)
+            centroids = assign = None
+            if snapshot is not None:
+                centroids, assign = self._kmeans(snapshot, clusters, seed)
+            del snapshot
+            if _multiprocess():
+                centroids = mesh_mod.broadcast(
+                    centroids, (clusters, self.dim), torch.float32, self.device, 0)
+                assign = mesh_mod.broadcast(assign, (n,), torch.int32, self.device, 0)
+            bucket_cap = max(8, int(2.0 * n / clusters))
+            buckets_np, overflow_np = build_buckets(
+                assign.cpu().numpy(), clusters, bucket_cap)
+            self._ivf_overflow_host = overflow_np.astype(np.int32)
+            self.ivf = IvfState(
+                centroids=centroids,
+                buckets=self._put(buckets_np, torch.int32),
+                overflow=self._put(_padded_overflow(self._ivf_overflow_host),
+                                   torch.int32),
+                overflow_count=len(self._ivf_overflow_host),
+                built_count=int(n),
+                n_clusters=int(clusters),
+                nprobe=int(probe),
+            )
+            return self.ivf
+
     def load_ivf_state(self, state) -> None:
         """Install an IVF state carried from elsewhere — the JAX index's
-        ``IvfState`` (any object with its fields) — over the current rows,
-        as ``load_state`` carries the rows, so both packages can serve the
-        same IVF."""
+        ``IvfState``, or another index's of this package (any object with
+        its fields) — over the current rows, as ``load_state`` carries the
+        rows, so both packages (and a sharded and an unsharded index) can
+        serve the same IVF."""
         with self.lock:
             count = int(state.overflow_count)
-            overflow = np.asarray(state.overflow).astype(np.int32)
+            overflow = _np(state.overflow).astype(np.int32)
             self._ivf_overflow_host = overflow[:count].copy()
             self.ivf = IvfState(
-                centroids=self._put(np.asarray(state.centroids, np.float32),
+                centroids=self._put(_np(state.centroids).astype(np.float32),
                                     torch.float32),
-                buckets=self._put(np.asarray(state.buckets), torch.int32),
+                buckets=self._put(_np(state.buckets), torch.int32),
                 overflow=self._put(overflow, torch.int32),
                 overflow_count=count,
                 built_count=int(state.built_count),
@@ -1277,6 +1646,20 @@ class CorpusIndex:
                 or not settings.dense_ivf_enabled
                 or state.overflow_count < max(state.built_count // 2, 8)
             ):
+                return
+            if _multiprocess() and not settings.dense_ivf_auto_rebuild_multihost:
+                # a gang build is a mirrored program that holds the shared
+                # lock for the whole k-means: fired from the insert path it
+                # would pause /retrieve on the leader. Operators rebuild
+                # explicitly (scripts/build_ivf) or opt in.
+                if not self._ivf_rebuild_warned:
+                    self._ivf_rebuild_warned = True
+                    logger.warning(
+                        "ivf.auto_rebuild_standdown corpus=%s overflow=%d "
+                        "built=%d: a gang build blocks serving for the "
+                        "k-means; run scripts/build_ivf or set "
+                        "DENSE_IVF_AUTO_REBUILD_MULTIHOST=1",
+                        self.name, state.overflow_count, state.built_count)
                 return
             self._ivf_rebuilding = True
 
@@ -1305,13 +1688,26 @@ class CorpusIndex:
         or tensors already on the device."""
         with self.lock:
             state = self.ivf
+            k = min(k, self.capacity)
+            if self.mesh is not None:
+                if _multiprocess():
+                    self._emit("query_ivf", {"statics": {"k": int(k)}}, {
+                        "q_emb": _np(q_emb).astype(np.float32),
+                        "allowed": _np(allowed_calls).astype(bool),
+                        "dmin": _np(date_min).astype(np.int32),
+                        "dmax": _np(date_max).astype(np.int32)})
+                return sharded_mod.ivf_lanes(
+                    self, state, self._put(q_emb, torch.float32),
+                    self._put(allowed_calls, torch.bool),
+                    self._put(date_min, torch.int32),
+                    self._put(date_max, torch.int32), k=k)
             mask = filter_mask(
                 self.call_idx, self.started, self._put(allowed_calls, torch.bool),
                 self._put(date_min, torch.int32), self._put(date_max, torch.int32))
             return ivf_topk(
                 self._put(q_emb, torch.float32), self.emb, state.centroids,
                 state.buckets, state.overflow, mask & self.has_emb[None, :],
-                k=min(k, self.capacity), nprobe=state.nprobe)
+                k=k, nprobe=state.nprobe)
 
     # -- query -------------------------------------------------------------
     def query(
@@ -1337,21 +1733,37 @@ class CorpusIndex:
             dense_enabled = q_emb is not None
             if not dense_enabled:
                 q_emb = np.zeros((batch, self.dim), np.float32)
-            out = _lanes_one_corpus(
-                *self.device_arrays(),
-                self._put(q_emb, torch.float32),
-                self._put(q_lex, torch.float32),
-                self._put(q_tech, torch.int32),
-                self._put(allowed_calls, torch.bool),
-                self._put(date_min, torch.int32),
-                self._put(date_max, torch.int32),
-                k_dense=min(k_dense, self.capacity),
-                k_lex=min(k_lex, self.capacity),
-                k_tech=min(k_tech, self.capacity),
-                dense_mode=dense_mode, dense_enabled=dense_enabled,
-            )
+            statics = {"k_dense": min(k_dense, self.capacity),
+                       "k_lex": min(k_lex, self.capacity),
+                       "k_tech": min(k_tech, self.capacity),
+                       "dense_mode": dense_mode, "dense_enabled": dense_enabled}
+            queries = {
+                "q_emb": _np(q_emb).astype(np.float32),
+                "q_lex": _np(q_lex).astype(np.float32),
+                "q_tech": _np(q_tech).astype(np.int32),
+                "allowed": _np(allowed_calls).astype(bool),
+                "dmin": _np(date_min).astype(np.int32),
+                "dmax": _np(date_max).astype(np.int32)}
+            if _multiprocess():
+                self._emit("query_single", {"statics": statics}, queries)
+            out = self.run_single_query(queries, statics)
             host = {lane: (_to_host(v), _to_host(p)) for lane, (v, p) in out.items()}
             return self.postprocess_lanes(host, batch)
+
+    def run_single_query(self, queries: Dict[str, np.ndarray],
+                         statics: Dict) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """This corpus's three lanes on the device (``query``'s program; a
+        gang's followers run it for the op-log's "query_single")."""
+        put = self._put
+        args = (put(queries["q_emb"], torch.float32),
+                put(queries["q_lex"], torch.float32),
+                put(queries["q_tech"], torch.int32),
+                put(queries["allowed"], torch.bool),
+                put(queries["dmin"], torch.int32),
+                put(queries["dmax"], torch.int32))
+        if self.mesh is not None:
+            return sharded_mod.single_lanes(self, *args, **statics)
+        return _lanes_one_corpus(*self.device_arrays(), *args, **statics)
 
     def postprocess_lanes(
         self, out: Dict[str, Tuple[np.ndarray, np.ndarray]], batch: int,
@@ -1458,12 +1870,27 @@ class PackedDispatch:
 
 
 class DeviceIndexManager:
-    """Both corpora on one device, plus the call-registry capacity that
-    sizes the filter bitmaps."""
+    """Both corpora on one device (or row-sharded over a mesh), plus the
+    call-registry capacity that sizes the filter bitmaps.
 
-    def __init__(self, device: DeviceLike) -> None:
+    ``mesh`` (default: ``MESH_SHAPE``, over every visible card, the CPU
+    repeated when the index lives on the CPU, or in a gang this process's
+    device once per shard it holds) shards both corpora's rows over its
+    ``data`` axis; ``INDEX_INITIAL_CAPACITY`` must divide by it."""
+
+    def __init__(self, device: DeviceLike, mesh: Optional[Mesh] = None) -> None:
         self.device = resolve_device(device)
         cap = int(settings.index_initial_capacity)
+        if mesh is None and settings.mesh_shape.strip():
+            mesh = make_mesh(settings.mesh_shape, device=self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            data_rows = sharded_mod.data_shards(mesh)
+            if cap % max(data_rows, 1):
+                raise ValueError(
+                    f"INDEX_INITIAL_CAPACITY {cap} must divide the mesh's "
+                    f"data axis ({data_rows})"
+                )
         kwargs = dict(
             dim=int(settings.embeddings_dim),
             lex_dim=int(settings.lexical_dim),
@@ -1471,9 +1898,16 @@ class DeviceIndexManager:
             capacity=cap,
             device=self.device,
             emb_dtype=settings.index_embedding_dtype,
+            mesh=mesh,
         )
         self.chunks = CorpusIndex("chunks", **kwargs)
         self.artifacts = CorpusIndex("artifact_chunks", **kwargs)
+        if _multiprocess():
+            # the op-log is a valid serialization of the leader's device
+            # order only if no two leader threads interleave their
+            # emit -> enqueue windows: under a gang both corpora share ONE
+            # lock (single process keeps one each, for more concurrency)
+            self.artifacts.lock = self.chunks.lock
         self.call_capacity = 256
         from .prewarm import GrowthPrewarmer
 
@@ -1532,13 +1966,16 @@ class DeviceIndexManager:
                          artifact_mode),
                     )
                 )
+            if _multiprocess():
+                raise RuntimeError(
+                    "multi-process serving dispatches through "
+                    "query_both_packed_async (mirrored over the op-log); the "
+                    "unpacked dual-corpus path is single-process only")
             chunk_mode, ivf_dense = self._resolve_chunk_dense(
                 chunk_mode, dense_enabled, q_emb, allowed_calls, date_min,
                 date_max, chunk_ks[0])
             put = self.chunks._put
-            chunks_raw, artifacts_raw = dual_corpus_retrieve(
-                self.chunks.device_arrays(),
-                self.artifacts.device_arrays(),
+            queries = (
                 put(q_emb if dense_enabled
                     else np.zeros((batch, self.chunks.dim), np.float32),
                     torch.float32),
@@ -1548,11 +1985,28 @@ class DeviceIndexManager:
                 put(allowed_calls, torch.bool),
                 put(date_min, torch.int32),
                 put(date_max, torch.int32),
-                chunk_ks=_clamp_ks(chunk_ks, self.chunks.capacity),
-                artifact_ks=_clamp_ks(artifact_ks, self.artifacts.capacity),
-                chunk_mode=chunk_mode, artifact_mode=artifact_mode,
-                dense_enabled=dense_enabled,
             )
+            chunk_ks = _clamp_ks(chunk_ks, self.chunks.capacity)
+            artifact_ks = _clamp_ks(artifact_ks, self.artifacts.capacity)
+            if self.mesh is not None:
+                q_emb_t, c_lex, a_lex, *rest = queries
+                chunks_raw, artifacts_raw = (
+                    sharded_mod.single_lanes(
+                        corpus, q_emb_t, q_lex, *rest, k_dense=ks[0],
+                        k_lex=ks[1], k_tech=ks[2], dense_mode=mode,
+                        dense_enabled=dense_enabled)
+                    for corpus, q_lex, ks, mode in (
+                        (self.chunks, c_lex, chunk_ks, chunk_mode),
+                        (self.artifacts, a_lex, artifact_ks, artifact_mode)))
+            else:
+                chunks_raw, artifacts_raw = dual_corpus_retrieve(
+                    self.chunks.device_arrays(),
+                    self.artifacts.device_arrays(),
+                    *queries,
+                    chunk_ks=chunk_ks, artifact_ks=artifact_ks,
+                    chunk_mode=chunk_mode, artifact_mode=artifact_mode,
+                    dense_enabled=dense_enabled,
+                )
             if ivf_dense is not None:
                 chunks_raw = dict(chunks_raw)
                 chunks_raw["dense"] = ivf_dense
@@ -1644,14 +2098,24 @@ class DeviceIndexManager:
                 chunk_mode=chunk_mode, artifact_mode=artifact_mode,
                 dense_enabled=dense_enabled, fuse_rrf=fuse_rrf,
             )
-            flat = dual_corpus_retrieve_packed(
-                self.chunks.device_arrays(), self.artifacts.device_arrays(),
-                d_packed, batch=batch, emb_dim=sig.emb_dim, q_feats=F,
+            statics = dict(
+                batch=batch, emb_dim=sig.emb_dim, q_feats=F,
                 tech_q=sig.tech_q, n_calls=sig.n_calls,
                 chunk_ks=sig.chunk_ks, artifact_ks=sig.artifact_ks,
                 chunk_mode=chunk_mode, artifact_mode=artifact_mode,
                 dense_enabled=dense_enabled, fuse_rrf=sig.fuse_rrf,
             )
+            if self.mesh is not None:
+                if _oplog is not None:
+                    _oplog.emit("query_packed",
+                                {"corpus": "chunks", "statics": statics},
+                                {"packed": packed})
+                flat = sharded_mod.packed_query(
+                    self.chunks, self.artifacts, d_packed, **statics)
+            else:
+                flat = dual_corpus_retrieve_packed(
+                    self.chunks.device_arrays(), self.artifacts.device_arrays(),
+                    d_packed, **statics)
             # snapshot the host mirrors while the positions are current
             chunk_snap = (self.chunks.h_ids, self.chunks.count)
             artifact_snap = (self.artifacts.h_ids, self.artifacts.count)

@@ -18,6 +18,9 @@ SQLite store, so evidence-pack serving reads real rows.
 ``install_capped_copy`` rebuilds one corpus's rows, in their order, in a
 corpus capped at ``INDEX_MAX_DEVICE_ROWS``: the first rows hot, the rest in
 the cold tier, so a capped index can be held to the uncapped one.
+``install_sharded_copy`` gives a row-sharded corpus (``MESH_SHAPE``) the rows
+of an unsharded one, each in the shard that owns its position, so a sharded
+index can be held to the unsharded one.
 """
 
 from __future__ import annotations
@@ -385,3 +388,33 @@ def bulk_store_rows(
             ),
         )
     return call_ids
+
+
+def install_sharded_copy(src: CorpusIndex, dst: CorpusIndex) -> None:
+    """Give ``dst`` (empty, row-sharded) the rows of ``src`` (unsharded,
+    same widths) in their order at ``src``'s capacity (rounded to a layout
+    the mesh shards), through the sharded slab write: each row lands in the
+    shard that owns its position. Ids, host mirrors, lexical stats and
+    counters are ``src``'s; tombstoned rows come along as tombstones."""
+    if dst.mesh is None or dst.count:
+        raise ValueError("install_sharded_copy: dst must be empty and sharded")
+    with src.lock, dst.lock:
+        n = src.count
+        cap = dst._shard_cap(max(dst.capacity, src.capacity))
+        dst.capacity = cap
+        dst._alloc_device(cap)
+        if n:
+            dst._write("write_slabs", (0, *(a[:n] for a in src.device_arrays())))
+        for attr in ("h_ids", "h_call", "h_started", "h_has_emb"):
+            old = getattr(src, attr)
+            mirror = np.zeros(cap, dtype=old.dtype)
+            if attr == "h_started":
+                mirror[:] = INT32_MIN
+            mirror[:n] = old[:n]
+            setattr(dst, attr, mirror)
+        dst._id_to_pos = dict(src._id_to_pos)
+        dst.doc_freq = src.doc_freq.copy()
+        dst.dl_sum = src.dl_sum
+        dst.emb_rows = src.emb_rows
+        dst.tombstones = src.tombstones
+        dst.count = n

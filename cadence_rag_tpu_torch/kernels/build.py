@@ -19,6 +19,8 @@ later synchronize would not report it.
 
 from __future__ import annotations
 
+import collections
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -46,6 +48,17 @@ _lib: Optional[ctypes.CDLL] = None
 # seconds the last build in this process took (0.0 when the cached
 # library was current); chip_smoke.py reports it
 last_build_seconds = 0.0
+# the tally of the shard whose lanes this thread runs (parallel/sharded.py):
+# a wrapper adds one to it beside its own count where it launches
+shard_tally: contextvars.ContextVar[Optional[collections.Counter]] = (
+    contextvars.ContextVar("shard_tally", default=None))
+
+
+def count_launch(kernel: str) -> None:
+    """One launch of ``kernel`` for the shard being scanned, if any."""
+    tally = shard_tally.get()
+    if tally is not None:
+        tally[kernel] += 1
 
 
 def nvcc_path() -> str:

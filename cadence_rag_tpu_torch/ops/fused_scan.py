@@ -231,6 +231,7 @@ def fused_scan(
     )
     build.check(err, "fused_scan")
     fused_scan.launches += 1
+    build.count_launch("fused_scan")
     return d_vals, d_idx, l_vals, l_idx
 
 

@@ -115,6 +115,21 @@ def ivf_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (scores (B, k) f32, positions (B, k) int64); positions -1 where no
     hit."""
+    vals, pos, _idx = ivf_shard_topk(q_emb, emb, centroids, buckets, overflow,
+                                     mask, k=k, nprobe=nprobe, row0=0)
+    return vals, pos
+
+
+def ivf_shard_topk(
+    q_emb: torch.Tensor, emb: torch.Tensor, centroids: torch.Tensor,
+    buckets: torch.Tensor, overflow: torch.Tensor, mask: torch.Tensor,
+    *, k: int, nprobe: int, row0: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ivf_topk`` over one shard: ``emb`` and ``mask`` hold the rows
+    ``[row0, row0 + emb.shape[0])`` of the corpus. The probed candidates
+    keep the whole corpus's layout, those outside the shard are masked, and
+    the positions are the corpus's. -> (scores, positions, each answer's
+    index in the candidate list: the sharded merge's tie order)"""
     q = q_emb.float()
     batch, dim = q.shape
     nprobe = min(nprobe, centroids.shape[0])
@@ -124,23 +139,27 @@ def ivf_topk(
     bytes_per_query = n_cand * dim * emb.element_size()
     group = max(1, min(batch, GATHER_BYTES // max(bytes_per_query, 1)))
     dev = emb.device
+    rows = emb.shape[0]
     out_vals = torch.full((batch, k), NEG_INF, dtype=torch.float32, device=dev)
     out_pos = torch.full((batch, k), -1, dtype=torch.int64, device=dev)
+    out_idx = torch.full((batch, k), n_cand, dtype=torch.int64, device=dev)
     tail = overflow.to(dev, torch.int64)
     for b0 in range(0, batch, group):
         b1 = min(batch, b0 + group)
         cand = buckets[probe[b0:b1]].reshape(b1 - b0, -1).to(torch.int64)
         cand = torch.cat([cand, tail[None, :].expand(b1 - b0, -1)], dim=1)
-        valid = cand >= 0
-        safe = torch.where(valid, cand, torch.zeros_like(cand))
+        local = cand - row0
+        valid = (cand >= 0) & (local >= 0) & (local < rows)
+        safe = torch.where(valid, local, torch.zeros_like(local))
         scores = torch.bmm(emb[safe].float(), q[b0:b1, :, None])[:, :, 0]
         if emb.dtype == torch.int8:
             scores = scores * INT8_SCALE
         keep = valid & torch.gather(mask[b0:b1], 1, safe)
         scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
         top_vals, top_i = topk_lowest_index_first(scores, k_eff)
-        top_pos = torch.gather(safe, 1, top_i)
+        top_pos = torch.gather(safe, 1, top_i) + row0
         out_vals[b0:b1, :k_eff] = top_vals
         out_pos[b0:b1, :k_eff] = torch.where(
             torch.isfinite(top_vals), top_pos, torch.full_like(top_pos, -1))
-    return out_vals, out_pos
+        out_idx[b0:b1, :k_eff] = top_i
+    return out_vals, out_pos, out_idx

@@ -133,6 +133,7 @@ def range_topk(
         )
         build.check(err, "tech_topk")
         range_topk.launches += 1
+        build.count_launch("tech_topk")
     return cand
 
 

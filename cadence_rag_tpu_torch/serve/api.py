@@ -417,10 +417,15 @@ def _unported_settings() -> List[str]:
     """Why the current settings cannot be served by the port: one line
     per setting whose feature is not ported, naming its ROADMAP item."""
     problems = []
-    if settings.dist_coordinator.strip() or settings.mesh_shape.strip():
+    from ..parallel.mesh import parse_mesh_shape
+
+    model_axes = {name: size for name, size in parse_mesh_shape(settings.mesh_shape)
+                  if name != "data" and size != 1}
+    if model_axes:
         problems.append(
-            "DIST_COORDINATOR / MESH_SHAPE: multi-device serving "
-            "(parallel/*) is not ported yet (ROADMAP Queue 1 item 7)")
+            f"MESH_SHAPE axes {model_axes}: the model axis (tensor-parallel "
+            "Qwen3 and embedder weights) is not ported yet (ROADMAP Queue 1: "
+            "item 7's half of item 6); the port shards rows over data only")
     if int(settings.profiler_port) > 0:
         problems.append(
             f"PROFILER_PORT={settings.profiler_port}: the profiler server "
@@ -429,11 +434,66 @@ def _unported_settings() -> List[str]:
     return problems
 
 
+def _join_gang(device: DeviceLike) -> DeviceLike:
+    """The distributed branch of startup (``DIST_COORDINATOR``): join the
+    process group at ``tcp://DIST_COORDINATOR`` as ``DIST_PROCESS_ID`` of
+    ``DIST_NUM_PROCESSES`` (``parallel/mesh.init_gang`` picks nccl or gloo
+    from the topology and this process's card). In a gang of more than one
+    process the leader (process 0) installs the op-log before any index
+    mutation and goes on to serve; a follower replays the leader's device
+    ops until the leader shuts down, then exits 0 (a leader lost without a
+    shutdown raises: nonzero). The op-log listens on the coordinator's port
+    + 1 unless ``DIST_OPLOG_PORT`` names one. -> this process's device"""
+    from ..parallel import mesh as mesh_mod
+    from ..parallel import oplog
+
+    coord = settings.dist_coordinator.strip()
+    n_processes = int(settings.dist_num_processes)
+    if n_processes <= 0:
+        raise RuntimeError(
+            f"DIST_COORDINATOR={coord!r} needs DIST_NUM_PROCESSES (the gang's "
+            "size) and DIST_PROCESS_ID (this process's rank)")
+    if n_processes > 1 and not settings.mesh_shape.strip():
+        raise RuntimeError(
+            "multi-host serving requires MESH_SHAPE spanning the gang's "
+            "devices (e.g. data:8)"
+        )
+    coord_host, _, coord_port = coord.partition(":")
+    if int(settings.dist_oplog_port):
+        oplog_port = int(settings.dist_oplog_port)
+    else:
+        try:
+            oplog_port = int(coord_port) + 1
+        except ValueError:
+            raise RuntimeError(
+                "cannot derive the op-log port: DIST_COORDINATOR="
+                f"{coord!r} carries no port — set DIST_OPLOG_PORT "
+                "or use DIST_COORDINATOR=host:port"
+            ) from None
+    gang = mesh_mod.init_gang(coord, n_processes, int(settings.dist_process_id),
+                              device)
+    logger.info("api.distributed_initialized coordinator=%s process=%s/%s "
+                "backend=%s device=%s", coord, gang.rank, gang.world,
+                gang.backend, gang.device)
+    if gang.world > 1:
+        if gang.rank == 0:
+            oplog.install_leader(
+                get_index(gang.device), oplog_port, gang.world - 1,
+                bind_host=settings.dist_oplog_bind.strip() or coord_host)
+        else:
+            logger.info("api.follower process=%s", gang.rank)
+            oplog.follower_main(get_index(gang.device), coord_host, oplog_port)
+            raise SystemExit(0)  # the leader shut down; no HTTP on followers
+    return gang.device
+
+
 def startup(device: DeviceLike = "cuda") -> None:
     """Fail-fast startup gate + index recovery (reference lifespan:
     app/main.py:33-39), on ``device`` (the card unless the caller asks
     for the CPU; asking for CUDA without a card raises). Settings whose
-    feature is not ported raise before anything starts. On CUDA, f32
+    feature is not ported raise before anything starts. With
+    ``DIST_COORDINATOR`` the process joins its gang first (``_join_gang``):
+    a follower never returns from it. On CUDA, f32
     matmuls are pinned to full precision (``allow_tf32`` off): the IVF
     lane scores f32 queries (``ops/ivf.py``), and a process that had asked
     for TF32 would otherwise change its answers. An empty index is rebuilt
@@ -446,6 +506,8 @@ def startup(device: DeviceLike = "cuda") -> None:
     problems = _unported_settings()
     if problems:
         raise RuntimeError("; ".join(problems))
+    if settings.dist_coordinator.strip():
+        device = _join_gang(device)
     store = get_store()
     if not settings.skip_version_check:
         ok, message = store.validate_versions()

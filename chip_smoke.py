@@ -147,6 +147,34 @@ final result line:
              128 planned with ``dense_ivf_enabled``: the planner must choose
              ivf, IVF must serve the chunks' dense lane, and every known
              row must come first (host RRF, as device RRF is off).
+10. parallel — row sharding (``parallel/``), on the card. (a) One process,
+             ``MESH_SHAPE`` data:2 over ``[cuda:0, cuda:0]``: phase 5's rows
+             copied into a sharded index (shards of 524,288 chunk and
+             65,536 artifact rows), its batches served through the index
+             API with the fused output and every K1/K3 lane bit-identical to
+             the unsharded index's for ``ann``, and for ``exact`` the
+             lexical and tech lanes bit-identical and the dense lane within
+             1e-5, near-ties counted; every known row first, and through
+             the engine (ids_only, ann and ivf) the unsharded index's
+             answers with every known row first; the batch and
+             its halves (shard lanes, gather + merge + RRF) timed beside the
+             unsharded program; ivf from phase 9's state with identical ids,
+             the sharded build's recall@10 beside the unsharded one's; a
+             growth of the artifacts past capacity (rows move between the
+             shards) and a v2 save restored into a fresh sharded index,
+             answers unchanged. (b) A two-process gang on the one card over
+             gloo: this process is the leader (``serve.api.startup`` with
+             the ``DIST_*`` settings, ``serve.http``'s app), the follower
+             ``python -m cadence_rag_tpu_torch.serve.http`` in a child; 1M +
+             100k rows loaded through the leader's index over the op-log
+             (seconds and GB/s), the store's rows and the known rows
+             ingested; over HTTP ids_only and packs, a DELETE, then a
+             compaction of both corpora and ids_only again; a v3 gang save
+             restored into one process answers alike (p50/p99/QPS of both);
+             the follower exits 0. (c) ``evals/dist_check --device cuda
+             --processes 2``. Then K1 and K3 against their plain versions at
+             every shard shape the phase launched and timed there; the
+             kernels line counts their launches per shard.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -159,6 +187,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import atexit
+import collections
+import contextlib
 import json
 import logging
 import os
@@ -201,6 +231,20 @@ HBM_PEAK_GBS = 3350.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Details(dict):
+    """The run's measurements. ``set_at_s`` keeps the seconds since the
+    run began at which each entry was stored: their differences are the
+    phases' wall times."""
+
+    def __init__(self, **entries):
+        super().__init__(entries, set_at_s={})
+        self.t0 = time.perf_counter()
+
+    def __setitem__(self, key, value):
+        self["set_at_s"][key] = time.perf_counter() - self.t0
+        super().__setitem__(key, value)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -544,17 +588,51 @@ def check_k3_case(q, tech, started, mask, k):
     return int(torch.isfinite(p_vals).sum())
 
 
+def k3_timing(device, n, batch, slots, capacity, seed, reps):
+    """K3's CUDA-event times at chip_smoke's traffic ("smoke"), k 50, with
+    ``capacity`` structures a query, beside its plain version and its bound."""
+    from cadence_rag_tpu_torch.ops.tech_keys import (
+        n_candidates, range_topk, range_topk_plain, tech_topk_keys,
+    )
+    from cadence_rag_tpu_torch.ops.techlane import tech_match
+    from cadence_rag_tpu_torch.ops.topk import topk_from_keys
+
+    nc = n_candidates(n, 50)
+    q, tech, started, mask = k3_inputs(device, n, batch, slots, "smoke", seed,
+                                       capacity=capacity)
+    cand = range_topk(q, tech, started, mask, 50)
+    matches = int((tech_match(tech, q) & mask).sum())
+    # the bytes the kernel must move: slots and start seconds once, the
+    # mask bytes of the matching pairs, the query structures, the
+    # candidates; the operations: one compare per row and nonzero query
+    # column (a zero column matches nothing and needs none)
+    gbytes = (n * slots * 4 + n * 4 + matches + q.numel() * 4 + batch * nc * 8) / 1e9
+    compares = n * int((q != 0).sum())
+    bytes_ms = gbytes / HBM_PEAK_GBS * 1e3
+    ops_ms = compares / (INT32_PEAK_TOPS * 1e12) * 1e3
+    out = {
+        "n": n, "batch": batch, "width": capacity * slots,
+        "ms": cuda_ms(lambda: range_topk(q, tech, started, mask, 50), reps),
+        "lane_ms": cuda_ms(lambda: tech_topk_keys(tech, started, q, mask, 50), reps),
+        "final_topk_ms": cuda_ms(lambda: topk_from_keys(cand, 50), reps),
+        "plain_ms": cuda_ms(lambda: range_topk_plain(q, tech, started, mask, 50), 1),
+        "matches": matches, "compares": compares,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+    }
+    del q, tech, started, mask, cand
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_k3(device, n, batch, slots, seed, reps):
     """Every density x k at batch x n, then a ragged n, batch 1, batch 200
     and two structures per query; then times at chip_smoke's traffic
     ("smoke"), k 50, with one structure per query (16 wide) and two (32
     wide, the main path's chunk queries). The kernels line reports the
     32-wide times."""
-    from cadence_rag_tpu_torch.ops.tech_keys import (
-        MAX_K, n_candidates, range_topk, range_topk_plain, tech_topk_keys,
-    )
-    from cadence_rag_tpu_torch.ops.techlane import tech_match
-    from cadence_rag_tpu_torch.ops.topk import topk_from_keys
+    from cadence_rag_tpu_torch.ops.tech_keys import MAX_K
 
     cases = []
     for density in K3_DENSITIES:
@@ -569,33 +647,8 @@ def check_k3(device, n, batch, slots, seed, reps):
                       "capacity": cap, "finite": check_k3_case(*args, 50)})
         del args
     torch.cuda.empty_cache()
-    timing = {}
-    nc = n_candidates(n, 50)
-    for cap in (1, 2):
-        q, tech, started, mask = k3_inputs(device, n, batch, slots, "smoke", seed,
-                                           capacity=cap)
-        cand = range_topk(q, tech, started, mask, 50)
-        matches = int((tech_match(tech, q) & mask).sum())
-        # the bytes the kernel must move: slots and start seconds once, the
-        # mask bytes of the matching pairs, the query structures, the
-        # candidates; the operations: one compare per row and nonzero query
-        # column (a zero column matches nothing and needs none)
-        gbytes = (n * slots * 4 + n * 4 + matches + q.numel() * 4 + batch * nc * 8) / 1e9
-        compares = n * int((q != 0).sum())
-        bytes_ms = gbytes / HBM_PEAK_GBS * 1e3
-        ops_ms = compares / (INT32_PEAK_TOPS * 1e12) * 1e3
-        timing[cap * slots] = {
-            "ms": cuda_ms(lambda: range_topk(q, tech, started, mask, 50), reps),
-            "lane_ms": cuda_ms(lambda: tech_topk_keys(tech, started, q, mask, 50), reps),
-            "final_topk_ms": cuda_ms(lambda: topk_from_keys(cand, 50), reps),
-            "plain_ms": cuda_ms(lambda: range_topk_plain(q, tech, started, mask, 50), 1),
-            "matches": matches, "compares": compares,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-        }
-        del q, tech, started, mask, cand
-        torch.cuda.empty_cache()
+    timing = {cap * slots: k3_timing(device, n, batch, slots, cap, seed, reps)
+              for cap in (1, 2)}
     t16, t32 = timing[slots], timing[2 * slots]
     log(f"K3 tech lane n={n} batch={batch} slots={slots}: {len(cases)} cases "
         "(densities none/smoke/dense x k 1/10/50/64, ragged n, batch 1 and 200, "
@@ -3620,6 +3673,630 @@ def run_geometry(device):
             "k1": {"batch": int(q.shape[0]), "rows": n, **k1}}
 
 
+# -- parallel: the row-sharded index ------------------------------------------
+PARALLEL_SPEC = "data:2"
+EXACT_ATOL = 1e-5                # exact dense lane: one cuBLAS product per N
+
+
+def shard_launches():
+    """{"<corpus>/<shard>": {"fused_scan": n, "tech_topk": n}} of the index
+    path since the tally was last cleared (``parallel/sharded.py``)."""
+    from cadence_rag_tpu_torch.parallel import sharded
+
+    return {f"{corpus}/{shard}": dict(tally) for (corpus, shard), tally
+            in sorted(sharded.launches_by_shard.items())}
+
+
+@contextlib.contextmanager
+def off_the_tally():
+    """Launches inside (timing repeats, comparisons) are not the main
+    path's: the per-shard tally is restored after them."""
+    from cadence_rag_tpu_torch.parallel import sharded
+
+    saved = {key: collections.Counter(t) for key, t in sharded.launches_by_shard.items()}
+    try:
+        yield
+    finally:
+        sharded.launches_by_shard.clear()
+        sharded.launches_by_shard.update(saved)
+
+
+def packed_flat(index, args, modes, fuse):
+    """One dispatch, collected -> (the flat output, the collected lanes)"""
+    disp = index.query_both_packed_async(
+        *args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS, chunk_mode=modes[0],
+        artifact_mode=modes[1], recall_target=0.95, fuse_rrf=fuse)
+    out = index.collect_packed(disp)
+    return disp.flat_host.numpy().copy(), out
+
+
+def compare_lanes(got, want, sig, exact_dense):
+    """Lane by lane, the sharded index's flat output against the unsharded
+    one's: bit-identical, or for the exact dense lane scores within
+    EXACT_ATOL with the ids identical except at near-ties (positions whose
+    two ids differ while their scores agree within EXACT_ATOL).
+    -> {lane: (positions compared, near-ties)}"""
+    from cadence_rag_tpu_torch.ops.pack import unflatten_lanes
+
+    layout = dict(chunk_ks=sig.chunk_ks, artifact_ks=sig.artifact_ks,
+                  chunk_mode=sig.chunk_mode, artifact_mode=sig.artifact_mode,
+                  dense_enabled=sig.dense_enabled)
+    g_lanes, w_lanes = unflatten_lanes(got, **layout), unflatten_lanes(want, **layout)
+    out = {}
+    for corpus, g_corpus, w_corpus in zip(("chunks", "artifacts"), g_lanes, w_lanes):
+        for lane, (w_vals, w_pos) in w_corpus.items():
+            g_vals, g_pos = g_corpus[lane]
+            name = f"{corpus}/{lane}"
+            if lane == "dense" and exact_dense:
+                finite = np.isfinite(w_vals)
+                if not np.array_equal(finite, np.isfinite(g_vals)):
+                    raise RuntimeError(f"{name}: finite entries differ")
+                err = float(np.abs(g_vals[finite] - w_vals[finite]).max(initial=0.0))
+                moved = finite & (g_pos != w_pos)
+                if err > EXACT_ATOL:
+                    raise RuntimeError(f"{name}: scores differ by {err:.3g}")
+                out[name] = (int(finite.sum()), int(moved.sum()), err)
+                continue
+            if not (np.array_equal(g_vals.view(np.int32), w_vals.view(np.int32))
+                    and np.array_equal(g_pos, w_pos)):
+                bad = np.argwhere((g_pos != w_pos) | (g_vals.view(np.int32)
+                                                      != w_vals.view(np.int32)))
+                raise RuntimeError(f"{name}: the sharded lane is not the unsharded "
+                                   f"one's, e.g. at {bad[0].tolist()}")
+            out[name] = (int(w_pos.size), 0, 0.0)
+    return out
+
+
+def recall_at(got_pos, want_pos, k=10):
+    """Mean share of the exact top-k positions a lane's top-k holds."""
+    return float(np.mean([len(set(g[:k].tolist()) & set(w[:k].tolist())) / k
+                          for g, w in zip(got_pos, want_pos)]))
+
+
+def engine_known_answers(index, texts, batch, workdir, ivf=False):
+    """The known rows' texts as ``batch`` unscoped ids_only requests through
+    the engine (``retrieve_evidence_batch``) with ``index`` as the
+    process-wide index and a store of its own under ``workdir`` (unfiltered
+    ids_only reads none of its rows). -> retrieved_ids per request"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
+    from cadence_rag_tpu_torch.store.db import reset_store
+
+    overrides = {"store_path": str(workdir / "engine.db"), "dense_ivf_enabled": ivf,
+                 "embeddings_provider": "stub", "embeddings_base_url": ""}
+    saved = {key: getattr(settings, key) for key in overrides}
+    saved_index = core_index._index
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    reset_store()
+    try:
+        core_index._index = index
+        return [r["retrieved_ids"] for r in retrieve_evidence_batch([
+            RetrieveRequest(query=texts[j % len(texts)], return_style="ids_only")
+            for j in range(batch)])]
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        core_index._index = saved_index
+        reset_store()
+
+
+def check_engine_alike(full, sh, texts, batch, workdir, what, ivf=False):
+    """The engine's answers on the sharded index: the unsharded index's, and
+    every known row first."""
+    got = engine_known_answers(sh, texts, batch, workdir, ivf)
+    if got != engine_known_answers(full, texts, batch, workdir, ivf):
+        raise RuntimeError(f"parallel {what}: the engine answers otherwise sharded")
+    wrong = [j for j, ids in enumerate(got)
+             if ids[:1] != [f"chunk:{KNOWN_ID0 + j % len(texts)}"]]
+    if wrong:
+        raise RuntimeError(f"parallel {what}: known row not first through the "
+                           f"engine for {len(wrong)} requests, e.g. {got[wrong[0]][:3]}")
+    return len(got)
+
+
+def silent_doc_rows(n, first_id):
+    """Rows that match no query (no embedding, empty signature and tech
+    slots): growth moves them, and once tombstoned they change no answer."""
+    from cadence_rag_tpu_torch.core.index import DocRow
+    from cadence_rag_tpu_torch.config import settings
+
+    lex = np.zeros(int(settings.lexical_dim), dtype=np.int8)
+    tech = np.zeros(int(settings.tech_hash_slots), dtype=np.int32)
+    return [DocRow(doc_id=first_id + i, call_seq=0, started_sec=1_700_000_000,
+                   lex_sig=lex, lex_dl=0, lex_touched=np.zeros(0, np.int32),
+                   tech=tech, embedding=None) for i in range(n)]
+
+
+def time_sharded_program(full, sh, args, modes, batch, device):
+    """Device times of one packed batch: the sharded program and its halves
+    (each shard's lanes; the gather + merge + RRF + flatten) beside the
+    unsharded program. -> {name: ms}"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import _stage
+    from cadence_rag_tpu_torch.ops.pack import (
+        dual_corpus_retrieve_packed, pack_queries, sparse_lex_rows,
+    )
+    from cadence_rag_tpu_torch.parallel import sharded
+
+    F = int(settings.query_lex_features)
+    packed = _stage(pack_queries(
+        args[0], sparse_lex_rows(args[1], sh.chunks.doc_freq,
+                                 sh.chunks.live_count, F),
+        sparse_lex_rows(args[1], sh.artifacts.doc_freq,
+                        sh.artifacts.live_count, F),
+        *args[2:]), device)
+    statics = dict(batch=batch, emb_dim=sh.chunks.dim, q_feats=F,
+                   tech_q=args[2].shape[1], n_calls=args[3].shape[1],
+                   chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS,
+                   chunk_mode=modes[0], artifact_mode=modes[1],
+                   dense_enabled=True)
+    local = sharded.packed_lanes(sh.chunks, sh.artifacts, packed, **statics)
+    return {
+        "lanes_ms": cuda_ms(
+            lambda: sharded.packed_lanes(sh.chunks, sh.artifacts, packed,
+                                         **statics), 5),
+        "merge_ms": cuda_ms(
+            lambda: sharded.packed_merge(local, 2, chunk_ks=CHUNK_KS,
+                                         artifact_ks=ARTIFACT_KS, fuse_rrf=True), 20),
+        "unsharded_program_ms": cuda_ms(
+            lambda: dual_corpus_retrieve_packed(
+                full.chunks.device_arrays(), full.artifacts.device_arrays(),
+                packed, fuse_rrf=True, **statics), 5),
+        "sharded_program_ms": cuda_ms(
+            lambda: sharded.packed_query(sh.chunks, sh.artifacts, packed,
+                                         fuse_rrf=True, **statics), 5),
+    }
+
+
+def run_parallel_local(device, full, batches, ivf_args, ivf_modes, batch, n_known,
+                       workdir, turns=3):
+    """(a) One process, ``PARALLEL_SPEC`` over ``[device, device]``: the main
+    path's rows copied into a sharded index, then its batches (unscoped
+    ``ann``, scoped ``exact``) and the ivf batch held to the unsharded
+    index ``full``; the sharded IVF build's recall beside the unsharded
+    one's; a growth of the artifacts past capacity; a v2 save and a restore
+    into a fresh sharded index. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.checkpoint import restore_index, save_index
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.evals.synth import install_sharded_copy
+    from cadence_rag_tpu_torch.ops.topk import dense_scores, masked_topk_exact
+    from cadence_rag_tpu_torch.parallel import sharded
+    from cadence_rag_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = make_mesh(PARALLEL_SPEC, [device, device])
+    summary = {"mesh": PARALLEL_SPEC}
+    t0 = time.perf_counter()
+    sh = DeviceIndexManager(device, mesh=mesh)
+    sh.ensure_call_capacity(full.call_capacity)
+    install_sharded_copy(full.chunks, sh.chunks)
+    install_sharded_copy(full.artifacts, sh.artifacts)
+    sync()
+    summary["copy_s"] = time.perf_counter() - t0
+    summary["shard_rows"] = {"chunks": sh.chunks.shard_rows,
+                             "artifacts": sh.artifacts.shard_rows}
+    dispatches = DispatchLog(sh)
+    sharded.launches_by_shard.clear()
+    for name, args, modes, expected in batches:
+        exact = modes[0] == "exact"
+        got, out = packed_flat(sh, args, modes, True)
+        check_first(out, expected, f"parallel {name}")
+        want, _ = packed_flat(full, args, modes, True)
+        if not exact and not np.array_equal(got, want):
+            raise RuntimeError(f"parallel {name}: the fused output is not the "
+                               "unsharded index's")
+        g_lanes, _ = packed_flat(sh, args, modes, False)
+        w_lanes, _ = packed_flat(full, args, modes, False)
+        disp = sh.query_both_packed_async(
+            *args, chunk_ks=CHUNK_KS, artifact_ks=ARTIFACT_KS, chunk_mode=modes[0],
+            artifact_mode=modes[1], recall_target=0.95, fuse_rrf=False)
+        sh.collect_packed(disp)
+        summary[name] = {"modes": modes, "fused_identical": bool(np.array_equal(got, want)),
+                         "lanes": compare_lanes(g_lanes, w_lanes, disp.sig, exact)}
+        # batch times: the unsharded and the sharded index in turns
+        times = {"unsharded": [], "sharded": []}
+        for which in ("unsharded", "sharded", "sharded", "unsharded") * turns:
+            idx = full if which == "unsharded" else sh
+            sync()
+            t = time.perf_counter()
+            serve_batch(idx, args, modes)
+            sync()
+            times[which].append((time.perf_counter() - t) * 1e3)
+        summary[name]["batch_ms"] = times
+        if cuda:
+            with off_the_tally():
+                summary[name].update(time_sharded_program(
+                    full, sh, args, modes, batch, device))
+    texts, _tokens = known_rows(n_known)
+    summary["engine_ann"] = check_engine_alike(full, sh, texts, batch, workdir, "ann")
+    summary["launches"] = shard_launches()
+    summary["dispatched"] = dispatches.take()
+
+    # ivf: the unsharded build's state serves the same ids sharded
+    sh.chunks.load_ivf_state(full.chunks.ivf)
+    expected = np.array([KNOWN_ID0 + j % n_known for j in range(batch)])
+    got, g_out = packed_flat(sh, ivf_args, ivf_modes, True)
+    want, w_out = packed_flat(full, ivf_args, ivf_modes, True)
+    check_first_lanes(g_out, expected, "parallel ivf")
+    for lane in ("dense", "lex", "tech"):
+        if not np.array_equal(g_out[0][lane][0], w_out[0][lane][0]):
+            raise RuntimeError(f"parallel ivf: chunk {lane} ids differ from the "
+                               "unsharded index's")
+    dispatches.take()
+    summary["engine_ivf"] = check_engine_alike(full, sh, texts, batch, workdir, "ivf",
+                                               ivf=True)
+    if {(cm, dense) for cm, _am, _b, dense, _w in dispatches.calls} != {("ivf", True)}:
+        raise RuntimeError(f"parallel ivf: the engine planned {dispatches.calls[:2]}")
+    # the sharded build (its k-means reads both shards) beside the unsharded
+    # one, by recall@10 of the dense lane against the exact scan
+    q = torch.from_numpy(ivf_args[0]).to(device)
+    n = full.chunks.count
+    exact = masked_topk_exact(
+        dense_scores(q, full.chunks.emb[:n]),
+        (full.chunks.started[:n] != INT32_MIN)[None, :].expand(q.shape[0], n)
+        & full.chunks.has_emb[None, :n], 10)[1].cpu().numpy()
+    allowed = np.ones((batch, sh.call_capacity), bool)
+    dmin = np.full(batch, INT32_MIN + 1, np.int32)
+    dmax = np.full(batch, INT32_MAX, np.int32)
+    flat_recall = recall_at(
+        full.chunks.ivf_dense_query(ivf_args[0], allowed, dmin, dmax, 10)[1].cpu().numpy(),
+        exact)
+    if cuda:
+        # the ivf dense lane on one state: each shard gathers and scores the
+        # whole probed candidate list (the rows it does not own masked)
+        lane_ms = {which: cuda_ms(lambda: idx.chunks.ivf_dense_query(
+            ivf_args[0], allowed, dmin, dmax, CHUNK_KS[0]), 5)
+            for which, idx in (("unsharded", full), ("sharded", sh))}
+        summary["ivf_lane_ms"] = lane_ms
+    sync()
+    t = time.perf_counter()
+    state = sh.chunks.build_ivf()
+    sync()
+    summary["ivf"] = {
+        "ids_identical": True, "build_s": time.perf_counter() - t,
+        "clusters": state.n_clusters, "nprobe": state.nprobe,
+        "recall_sharded_build": recall_at(
+            sh.chunks.ivf_dense_query(ivf_args[0], allowed, dmin, dmax, 10)[1]
+            .cpu().numpy(), exact),
+        "recall_unsharded_build": flat_recall}
+
+    summary["dispatched"] += dispatches.take()
+
+    # growth past the artifacts' capacity: rows move between the shards
+    cap0, rows0 = sh.artifacts.capacity, sh.artifacts.count
+    extra = cap0 - rows0 + 1
+    silent = silent_doc_rows(extra, int(full.artifacts.h_ids[:rows0].max()) + 1)
+    sync()
+    t = time.perf_counter()
+    sh.artifacts.insert(silent)
+    sync()
+    summary["growth"] = {"corpus": "artifact_chunks", "old_capacity": cap0,
+                         "capacity": sh.artifacts.capacity, "rows": sh.artifacts.count,
+                         "insert_s": time.perf_counter() - t}
+    if sh.artifacts.capacity <= cap0:
+        raise RuntimeError("parallel: the artifacts did not grow")
+    # tombstoned again: the live count (the lexical idf) is the unsharded
+    # index's once more, so its answers must be too
+    sh.artifacts.delete_ids([r.doc_id for r in silent])
+    for name, args, modes, expected in batches:
+        got, out = packed_flat(sh, args, modes, True)
+        check_first(out, expected, f"parallel {name} after growth")
+        want, _ = packed_flat(full, args, modes, True)
+        if modes[0] != "exact" and not np.array_equal(got, want):
+            raise RuntimeError(f"parallel {name}: answers changed across the growth")
+    summary["dispatched_grown"] = dispatches.take()
+
+    # a v2 save of the sharded index, restored into a fresh sharded index
+    ckpt = workdir / "parallel_v2"
+    t = time.perf_counter()
+    meta = save_index(str(ckpt), sh)
+    save_s = time.perf_counter() - t
+    fresh = DeviceIndexManager(device, mesh=mesh)
+    t = time.perf_counter()
+    restore_index(str(ckpt), fresh)
+    sync()
+    restore_s = time.perf_counter() - t
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for name, args, modes, expected in batches:
+        got, out = packed_flat(fresh, args, modes, True)
+        check_first(out, expected, f"parallel {name} restored")
+        want, _ = packed_flat(sh, args, modes, True)
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"parallel {name}: the restored sharded index "
+                               "answers otherwise")
+    summary["checkpoint"] = {"format": meta["format_version"], "save_s": save_s,
+                             "restore_s": restore_s,
+                             "rows": {k: int(v) for k, v in meta["counts"].items()}}
+    summary["corpora"] = {
+        name: {"rows": c.shard_rows, "dim": c.dim, "lex_dim": c.lex_dim,
+               "slots": c.tech_slots, "emb_dtype": c.emb_dtype}
+        for name, c in (("chunks", sh.chunks), ("artifacts", sh.artifacts))}
+    # the shapes the growth left: the artifacts' shards doubled
+    summary["corpora_before_growth"] = dict(summary["corpora"])
+    summary["corpora_before_growth"]["artifacts"] = dict(
+        summary["corpora"]["artifacts"], rows=cap0 // 2)
+    del sh, fresh
+    if cuda:
+        torch.cuda.empty_cache()
+    return summary
+
+
+def synthetic_shards(device, n, dim, lex_dim, slots, seed, rows_per=131072):
+    """Checkpoint-shaped slabs of ``n`` synthetic rows (doc ids 1..n), made
+    on ``device`` and handed over as host arrays, for
+    ``CorpusIndex.load_state_streaming``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    for r0 in range(0, n, rows_per):
+        m = min(rows_per, n - r0)
+        x = torch.randn((m, dim), generator=g, device=device)
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        yield {
+            "emb": x.to(torch.bfloat16).cpu(),
+            "lex": torch.randint(-4, 5, (m, lex_dim), generator=g, device=device,
+                                 dtype=torch.int8).cpu().numpy(),
+            "tech": torch.randint(1, 5000, (m, slots), generator=g, device=device,
+                                  dtype=torch.int32).cpu().numpy(),
+            "ids": np.arange(r0 + 1, r0 + m + 1, dtype=np.int64),
+            "call": torch.randint(0, N_CALLS, (m,), generator=g, device=device,
+                                  dtype=torch.int32).cpu().numpy(),
+            "started": torch.randint(1_600_000_000, 1_750_000_000, (m,), generator=g,
+                                     device=device, dtype=torch.int32).cpu().numpy(),
+            "has_emb": np.ones(m, dtype=bool),
+        }
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_gang(device, n_chunks, n_artifacts, workdir, concurrency=128, rounds=10):
+    """(b) A two-process gang on ``device``'s one card: this process is the
+    leader, started through ``serve.api.startup`` (what ``serve.http``
+    runs) with the ``DIST_*`` settings and ``MESH_SHAPE`` ``PARALLEL_SPEC``,
+    and serves ``serve.http``'s app; the follower is
+    ``python -m cadence_rag_tpu_torch.serve.http`` in a child process. The
+    rows go through the leader's index (``load_state_streaming``, as a
+    restore does), so every row reaches the follower over the op-log; the
+    store gets the matching rows and the known rows are ingested. Over
+    HTTP: ids_only and packs, the known rows' queries, a DELETE, then a
+    compaction of both corpora and ids_only again; a v3 gang save,
+    restored into a one-process index served the same way, must answer
+    alike. -> summary"""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core import index as core_index
+    from cadence_rag_tpu_torch.core.checkpoint import restore_index, save_index
+    from cadence_rag_tpu_torch.evals.synth import bulk_store_rows
+    from cadence_rag_tpu_torch.ingest.sync import reset_syncer
+    from cadence_rag_tpu_torch.parallel import mesh as mesh_mod
+    from cadence_rag_tpu_torch.parallel import oplog, sharded
+    from cadence_rag_tpu_torch.serve.api import startup
+    from cadence_rag_tpu_torch.store.db import get_store, reset_store
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    coord = f"127.0.0.1:{free_port()}"
+    overrides = {"store_path": str(workdir / "gang.db"),
+                 "embeddings_provider": "stub", "embeddings_base_url": "",
+                 "retrieve_batch_window_ms": 5, "store_sync_interval_s": 0.0,
+                 "log_level": "WARNING", "mesh_shape": PARALLEL_SPEC,
+                 "dist_coordinator": coord, "dist_num_processes": 2,
+                 "dist_process_id": 0, "dist_oplog_port": free_port()}
+    saved = {key: getattr(settings, key) for key in overrides}
+    for key, value in overrides.items():
+        setattr(settings, key, value)
+    env = child_env()
+    env.update({"STORE_PATH": str(workdir / "follower.db"), "LOG_LEVEL": "INFO",
+                "MESH_SHAPE": PARALLEL_SPEC, "DIST_COORDINATOR": coord,
+                "DIST_NUM_PROCESSES": "2", "DIST_PROCESS_ID": "1",
+                "DIST_OPLOG_PORT": str(overrides["dist_oplog_port"])})
+    follower_log = workdir / "follower.log"
+    follower = subprocess.Popen(
+        [sys.executable, "-c", CHILD, "cadence_rag_tpu_torch.serve.http",
+         "--device", device.type, "--port", str(free_port())],
+        env=env, stdout=open(follower_log, "w"), stderr=subprocess.STDOUT)
+    stop = None
+    summary = {"mesh": PARALLEL_SPEC}
+    try:
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+        sharded.launches_by_shard.clear()
+        t0 = time.perf_counter()
+        startup(device.type)
+        gang = mesh_mod.gang()
+        summary["startup_s"] = time.perf_counter() - t0
+        summary["backend"] = gang.backend
+        index = core_index.get_index()
+        log = oplog.leader()
+        sent0 = log.bytes_sent
+        t0 = time.perf_counter()
+        for corpus, n, seed in ((index.chunks, n_chunks, 0),
+                                (index.artifacts, n_artifacts, 1)):
+            rng = np.random.default_rng(seed)
+            corpus.load_state_streaming(
+                synthetic_shards(device, n, corpus.dim, corpus.lex_dim,
+                                 corpus.tech_slots, seed),
+                rng.integers(1, max(n // 4, 2), size=corpus.lex_dim).astype(np.int64),
+                12 * n, n)
+        sync()
+        load_s = time.perf_counter() - t0
+        summary["oplog_load"] = {"s": load_s, "bytes": log.bytes_sent - sent0,
+                                 "gbs": (log.bytes_sent - sent0) / load_s / 1e9,
+                                 "rows": n_chunks + n_artifacts}
+        index.ensure_call_capacity(N_CALLS)
+        t0 = time.perf_counter()
+        with get_store().read() as conn:
+            conn.execute("PRAGMA cache_size = -1048576")
+        bulk_store_rows(get_store(), n_chunks, n_artifacts, N_CALLS)
+        known_call, known_texts, known_ids = ingest_known_rows(N_KNOWN)
+        summary["store_s"] = time.perf_counter() - t0
+        port, stop = start_server()
+        ids_only = lambda salt: (lambda r: [
+            {"query": q, "return_style": "ids_only"}
+            for q in unique_queries(concurrency, salt + r)])
+        known = lambda r: [{"query": t, "return_style": "ids_only"} for t in known_texts]
+
+        def known_first(tag):
+            got = [res[2]["retrieved_ids"][:1]
+                   for _w, ress in http_rounds(port, "/retrieve", known, 1, workdir)
+                   for res in ress]
+            wrong = [(i, g) for i, g in zip(known_ids, got) if g != [f"chunk:{i}"]]
+            if wrong:
+                raise RuntimeError(f"gang {tag}: known rows not first, e.g. {wrong[0]}")
+
+        http_rounds(port, "/retrieve", ids_only(0), 1, workdir)          # warm
+        gang_a = http_rounds(port, "/retrieve", ids_only(1), rounds, workdir)
+        summary["ids_only"] = round_stats(gang_a)
+        summary["packs"] = round_stats(http_rounds(
+            port, "/retrieve", lambda r: [{"query": q} for q in unique_queries(
+                concurrency, 500 + r)], 2, workdir))
+        known_first("loaded")
+        # DELETE the synthetic call whose rows the answers named most
+        with get_store().read() as conn:
+            owner = dict(conn.execute(
+                "SELECT chunk_id, call_id FROM chunks WHERE chunk_id <= ?",
+                (n_chunks,)).fetchall())
+        named = {}
+        for _w, ress in gang_a:
+            for _s, _l, data in ress:
+                for cid in answer_ids(data)[0]:
+                    if cid in owner:
+                        named[owner[cid]] = named.get(owner[cid], 0) + 1
+        doomed = max(named, key=named.get)
+        with get_store().read() as conn:
+            doomed_ids = {int(r[0]) for r in conn.execute(
+                "SELECT chunk_id FROM chunks WHERE call_id = ?", (doomed,)).fetchall()}
+        t = time.perf_counter()
+        status, _body = http_json(port, "DELETE", f"/calls/{doomed}")
+        summary["delete"] = {"status": status, "ms": (time.perf_counter() - t) * 1e3,
+                             "chunks": len(doomed_ids), "named": named[doomed]}
+        if status != 200:
+            raise RuntimeError(f"gang: DELETE /calls/{doomed} answered {status}")
+        # compaction of both corpora (mirrored; rows move between processes)
+        compact = {}
+        for corpus in (index.chunks, index.artifacts):
+            sync()
+            t = time.perf_counter()
+            corpus.compact()
+            sync()
+            compact[corpus.name] = {"s": time.perf_counter() - t, "rows": corpus.count,
+                                    "capacity": corpus.capacity}
+        summary["compaction"] = compact
+        after = http_rounds(port, "/retrieve", ids_only(1), rounds, workdir)
+        summary["ids_only_after"] = round_stats(after)
+        gang_answers = [d["retrieved_ids"] for _w, ress in after for _s, _l, d in ress]
+        leaked = {i for ids in gang_answers for i in ids
+                  if i.startswith("chunk:") and int(i[6:]) in doomed_ids}
+        if leaked:
+            raise RuntimeError(f"gang: deleted rows answered: {sorted(leaked)[:4]}")
+        known_first("compacted")
+        ckpt = workdir / "gang_v3"
+        t = time.perf_counter()
+        meta = save_index(str(ckpt))
+        summary["v3_save"] = {"s": time.perf_counter() - t,
+                              "format": meta["format_version"],
+                              "files": {k: len(v) for k, v in meta["heavy_files"].items()}}
+        if meta["format_version"] != 3:
+            raise RuntimeError("gang: the save was not format v3")
+        summary["launches_leader"] = shard_launches()
+        stop()
+        stop = None
+        oplog.uninstall_leader()
+        rc = follower.wait(timeout=120)
+        text = follower_log.read_text()
+        if rc != 0:
+            raise RuntimeError(f"gang: the follower exited {rc}: {text[-2000:]}")
+        found = re.search(r"oplog\.shutdown applied=(\d+) shard_launches=(\{.*\})", text)
+        if not found:
+            raise RuntimeError(f"gang: the follower logged no shutdown: {text[-2000:]}")
+        summary["follower_ops"] = int(found.group(1))
+        summary["launches_follower"] = json.loads(found.group(2))
+        mesh_mod.leave_gang()
+
+        # the v3 directory, restored into one process, answers alike
+        for key in ("mesh_shape", "dist_coordinator", "dist_num_processes",
+                    "dist_process_id", "dist_oplog_port"):
+            setattr(settings, key, saved[key])
+        core_index.reset_index()
+        solo = core_index.get_index(device)
+        t = time.perf_counter()
+        restore_index(str(ckpt), solo)
+        sync()
+        summary["v3_restore_s"] = time.perf_counter() - t
+        shutil.rmtree(ckpt, ignore_errors=True)
+        port, stop = start_server()
+        http_rounds(port, "/retrieve", ids_only(0), 1, workdir)          # warm
+        single = http_rounds(port, "/retrieve", ids_only(1), rounds, workdir)
+        summary["ids_only_single"] = round_stats(single)
+        single_answers = [d["retrieved_ids"] for _w, ress in single for _s, _l, d in ress]
+        if single_answers != gang_answers:
+            diff = sum(a != b for a, b in zip(single_answers, gang_answers))
+            raise RuntimeError(f"gang: {diff} of {len(gang_answers)} answers differ "
+                               "from the one-process index restored from its v3 save")
+        known_first("restored from v3")
+        summary["answers_compared"] = len(gang_answers)
+        return summary
+    finally:
+        if stop is not None:
+            stop()
+        if oplog.leader() is not None:
+            oplog.uninstall_leader()
+        if follower.poll() is None:
+            follower.kill()
+            follower.wait(30)
+        mesh_mod.leave_gang()
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        reset_store()
+        core_index.reset_index()
+        reset_syncer()
+
+
+def run_dist_check(device_type, processes=2):
+    """(c) ``evals/dist_check`` as its own launcher runs it. -> summary"""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, "cadence_rag_tpu_torch.evals.dist_check",
+         "--device", device_type, "--processes", str(processes),
+         "--port", str(free_port())],
+        capture_output=True, text=True, timeout=600, env=child_env())
+    out = proc.stdout
+    if proc.returncode != 0 or "DIST CHECK PASSED" not in out or out.count("MATCH") != processes:
+        raise RuntimeError(f"dist_check failed (rc {proc.returncode}): "
+                           f"{out[-2000:]}{proc.stderr[-2000:]}")
+    return {"s": time.perf_counter() - t, "processes": processes,
+            "lines": [ln for ln in out.splitlines() if "sharded lanes" in ln]}
+
+
+def run_parallel(device, full, batches, ivf_args, ivf_modes, batch, n_known,
+                 n_chunks, n_artifacts, gang_concurrency=128, gang_rounds=6, turns=3):
+    """The ``parallel`` phase: (a) one process at ``PARALLEL_SPEC``, (b) the
+    two-process gang over HTTP, (c) ``dist_check``. -> summary"""
+    import tempfile
+
+    device = torch.device(device)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        local = run_parallel_local(device, full, batches, ivf_args, ivf_modes, batch,
+                                   n_known, workdir, turns=turns)
+        gang = run_gang(device, n_chunks, n_artifacts, workdir,
+                        concurrency=gang_concurrency, rounds=gang_rounds)
+        dist = run_dist_check(device.type)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"local": local, "gang": gang, "dist_check": dist}
+
+
 def write_details(path, details):
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -3651,7 +4328,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
-    details = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__}
+    details = Details(device=kind, nvidia_smi=smi, torch=torch.__version__)
     # written when the process ends, so a failed run keeps what it measured
     atexit.register(write_details, opts.details, details)
 
@@ -4037,6 +4714,99 @@ def main(argv=None) -> int:
         f"{np.median(ivf['warm_batch_ms']):.1f} ms; every known row first "
         f"(fused and dense); launches {ivf_launches}")
 
+    details["parallel"] = par = run_parallel(
+        device, index, batches, ivf_args, ivf_modes, 128, N_KNOWN, 1_000_000, 100_000)
+    pl, pg, pd = par["local"], par["gang"], par["dist_check"]
+    un, sc = pl["unscoped"], pl["scoped"]
+    log(f"parallel ({smi}), {pl['mesh']} over [cuda:0, cuda:0] in one process, the "
+        f"main path's rows copied in {pl['copy_s']:.1f} s (shards of "
+        f"{pl['shard_rows']['chunks']} chunks, {pl['shard_rows']['artifacts']} "
+        f"artifact rows): unscoped {tuple(un['modes'])} fused output and every lane "
+        f"bit-identical to the unsharded index's; scoped {tuple(sc['modes'])} lexical "
+        f"and tech lanes bit-identical, exact dense lanes within {EXACT_ATOL} "
+        + ", ".join(f"({name} |err| {v[2]:.3g}, near-tie positions {v[1]} of {v[0]})"
+                    for name, v in sc["lanes"].items() if name.endswith("dense"))
+        + "; batch of 128 host ms (median of 6, in turns) "
+        + "; ".join(f"{name} sharded {np.median(pl[name]['batch_ms']['sharded']):.2f} "
+                    f"unsharded {np.median(pl[name]['batch_ms']['unsharded']):.2f}"
+                    for name in ("unscoped", "scoped"))
+        + "; device ms " + "; ".join(
+            f"{name} program sharded {pl[name]['sharded_program_ms']:.2f} (lanes "
+            f"{pl[name]['lanes_ms']:.2f}, gather + merge + RRF {pl[name]['merge_ms']:.3f}) "
+            f"unsharded {pl[name]['unsharded_program_ms']:.2f}"
+            for name in ("unscoped", "scoped"))
+        + f"; every known row first, through the index API and through the engine "
+        f"({pl['engine_ann']} ann and {pl['engine_ivf']} ivf ids_only requests with "
+        f"the unsharded index's answers); ivf from the unsharded build's state: ids "
+        f"identical, the chunks' ivf dense lane device ms sharded "
+        f"{pl['ivf_lane_ms']['sharded']:.2f} unsharded {pl['ivf_lane_ms']['unsharded']:.2f}; "
+        f"the sharded build {pl['ivf']['build_s']:.2f} s "
+        f"({pl['ivf']['clusters']} clusters), recall@10 against the exact scan "
+        f"{pl['ivf']['recall_sharded_build']:.4f} beside the unsharded build's "
+        f"{pl['ivf']['recall_unsharded_build']:.4f}; artifacts grown "
+        f"{pl['growth']['old_capacity']} -> {pl['growth']['capacity']} in "
+        f"{pl['growth']['insert_s']:.2f} s, answers unchanged; v2 save "
+        f"{pl['checkpoint']['save_s']:.1f} s, restore into a fresh sharded index "
+        f"{pl['checkpoint']['restore_s']:.1f} s, answers identical; K1/K3 launches per "
+        f"shard {pl['launches']}")
+    ol = pg["oplog_load"]
+    log(f"parallel gang ({smi}): two processes on the one card, {pg['backend']}; "
+        f"startup {pg['startup_s']:.1f} s; {ol['rows']} rows loaded through the "
+        f"leader's index over the op-log in {ol['s']:.1f} s ({ol['bytes'] / 1e9:.2f} GB, "
+        f"{ol['gbs']:.2f} GB/s); ids_only over HTTP, 128 concurrent: gang p50 "
+        f"{pg['ids_only']['p50_ms']:.1f} ms p99 {pg['ids_only']['p99_ms']:.1f} ms "
+        f"{pg['ids_only']['qps']:.0f} QPS (after the compaction p50 "
+        f"{pg['ids_only_after']['p50_ms']:.1f} ms {pg['ids_only_after']['qps']:.0f} QPS) "
+        f"beside one process restored from the gang's v3 save p50 "
+        f"{pg['ids_only_single']['p50_ms']:.1f} ms p99 "
+        f"{pg['ids_only_single']['p99_ms']:.1f} ms {pg['ids_only_single']['qps']:.0f} "
+        f"QPS; packs p50 {pg['packs']['p50_ms']:.1f} ms; DELETE of a call of "
+        f"{pg['delete']['chunks']} chunks {pg['delete']['ms']:.1f} ms; compaction "
+        + ", ".join(f"{k} {v['s'] * 1e3:.0f} ms ({v['rows']} rows)"
+                    for k, v in pg["compaction"].items())
+        + f"; v3 save {pg['v3_save']['s']:.1f} s, one-process restore "
+        f"{pg['v3_restore_s']:.1f} s; {pg['answers_compared']} answers equal to the "
+        f"one-process index's, every known row first, no deleted row; the follower "
+        f"applied {pg['follower_ops']} ops and exited 0; launches leader "
+        f"{pg['launches_leader']} follower {pg['launches_follower']}")
+    log(f"parallel dist_check --device cuda --processes {pd['processes']}: PASSED in "
+        f"{pd['s']:.1f} s: " + " | ".join(pd["lines"]))
+    details["parallel_shapes"] = check_served_shapes(
+        device, pl["dispatched"], pl["corpora_before_growth"], seed=120)
+    details["parallel_shapes_grown"] = check_served_shapes(
+        device, pl["dispatched_grown"], pl["corpora"], seed=140)
+    details["k1_shard"] = {
+        name: check_k1(device, rows, 128, 1024, 4096, torch.bfloat16, seed=160 + i,
+                       reps=5)
+        for i, (name, rows) in enumerate((("chunks", pl["shard_rows"]["chunks"]),
+                                          ("artifacts", pl["shard_rows"]["artifacts"])))}
+    details["k3_shard"] = {
+        name: k3_timing(device, rows, 128, 16, 2, seed=170 + i, reps=10)
+        for i, (name, rows) in enumerate((("chunks", pl["shard_rows"]["chunks"]),
+                                          ("artifacts", pl["shard_rows"]["artifacts"])))}
+    log("parallel shard shapes (" + smi + "): " + "; ".join(
+        f"{name} {r['n']} rows batch 128: K1 {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
+        f"ms by {r['bound_by']}, plain {r['plain_ms']:.3f}), K3 width 32 "
+        f"{details['k3_shard'][name]['ms']:.3f} ms (bound "
+        f"{details['k3_shard'][name]['bound_ms']:.3f} ms by "
+        f"{details['k3_shard'][name]['bound_by']}, plain "
+        f"{details['k3_shard'][name]['plain_ms']:.3f})"
+        for name, r in details["k1_shard"].items()))
+    k1_err = max(k1_err, details["parallel_shapes"]["k1_max_abs_err"],
+                 details["parallel_shapes_grown"]["k1_max_abs_err"],
+                 *(r["max_abs_err"] for r in details["k1_shard"].values()))
+    parallel_launches = {
+        kernel: sum(t.get(kernel, 0) for launches in (
+            pl["launches"], pg["launches_leader"], pg["launches_follower"])
+            for t in launches.values())
+        for kernel in ("fused_scan", "tech_topk")}
+    if min(parallel_launches.values()) <= 0:
+        raise RuntimeError(f"the parallel phase did not launch K1 and K3: {parallel_launches}")
+    for launches in (pl["launches"], pg["launches_leader"], pg["launches_follower"]):
+        if not launches or min(t.get(kernel, 0) for t in launches.values()
+                               for kernel in ("fused_scan", "tech_topk")) <= 0:
+            raise RuntimeError(f"a shard launched no K1 or K3: {launches}")
+
     details["growth_sync"] = gs = run_sync_growth(device, index, batches, 128)
     sp = gs["split"]
     log(f"lifecycle growth, GROWTH_MIGRATION_ENABLED=0 ({smi}), the index-API phase's "
@@ -4056,18 +4826,35 @@ def main(argv=None) -> int:
                           for name in ("fused_scan", "tech_topk")}
 
     k1, k3, k2 = details["k1"], details["k3"], details["k2"]
+
+    def by_shard(kernel):
+        """The parallel phase's launches per shard: "<where> <corpus>/<shard>"
+        -> n, and each shard shape's time beside its bound."""
+        out = {f"{where} {shard}": t.get(kernel, 0) for where, launches in (
+            ("one process", pl["launches"]), ("gang leader", pg["launches_leader"]),
+            ("gang follower", pg["launches_follower"]))
+            for shard, t in launches.items()}
+        timed = details["k1_shard"] if kernel == "fused_scan" else details["k3_shard"]
+        out["shapes"] = {name: {"rows": r["n"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                         for name, r in timed.items()}
+        return out
+
     kernels = [
         {"name": "fused_scan", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/fused_scan.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_fused.py:99",
          "launches": (serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"]
                       + lifecycle_launches["fused_scan"]
-                      + models["launches"]["fused_scan"] + geo["launches"]),
+                      + models["launches"]["fused_scan"] + geo["launches"]
+                      + parallel_launches["fused_scan"]),
          "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
                                "writes": writes["launches"]["fused_scan"],
                                "lifecycle": lifecycle_launches["fused_scan"],
                                "models": models["launches"]["fused_scan"],
-                               "training": geo["launches"]},
+                               "training": geo["launches"],
+                               "parallel": parallel_launches["fused_scan"]},
+         "launches_by_shard": by_shard("fused_scan"),
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
@@ -4076,11 +4863,14 @@ def main(argv=None) -> int:
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",
          "launches": (serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"]
                       + lifecycle_launches["tech_topk"]
-                      + models["launches"]["tech_topk"]),
+                      + models["launches"]["tech_topk"]
+                      + parallel_launches["tech_topk"]),
          "launches_by_phase": {"serve": serve["launches"]["tech_topk"],
                                "writes": writes["launches"]["tech_topk"],
                                "lifecycle": lifecycle_launches["tech_topk"],
-                               "models": models["launches"]["tech_topk"]},
+                               "models": models["launches"]["tech_topk"],
+                               "parallel": parallel_launches["tech_topk"]},
+         "launches_by_shard": by_shard("tech_topk"),
          "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
@@ -4091,6 +4881,11 @@ def main(argv=None) -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]
+    stamps = sorted(details["set_at_s"].items(), key=lambda kv: kv[1])
+    log("phases (wall s, each entry since the one before; " + smi + "): "
+        + ", ".join(f"{key} {at - before:.1f}" for (key, at), (_k, before)
+                    in zip(stamps, [("start", 0.0)] + stamps[:-1]))
+        + f"; total {time.perf_counter() - details.t0:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,7 +9,9 @@ corpus: a directory the JAX package saved restores in the port and one the
 port saved restores in the JAX package, bf16 and int8 rows, with and
 without a lexical vocab, state arrays bit-equal and the answers identical;
 a v1 directory and a hand-made v3 (multi-host) directory restore in both;
-saving v3 raises, naming its ROADMAP item; the snapshot CLI round-trips on
+the port's v3 writer (a gang's save, here over a one-process mesh of four
+shards) writes a directory both packages restore to the saved state; the
+snapshot CLI round-trips on
 ``--device cpu``; and startup's digest check of a restored index against
 the store passes or raises as the JAX package's does.
 """
@@ -196,15 +198,39 @@ def test_v1_and_v3_directories_restore_in_both(port_store, set_both, tmp_path, e
         PORT.checkpoint.restore_index(str(v3), PORT.index.get_index())
 
 
-def test_saving_v3_raises_naming_its_item(port_store, tmp_path):
-    index = PORT.index.get_index()
-    for call in (lambda: PORT.checkpoint._save_index_multihost(str(tmp_path), index),
-                 lambda: PORT.checkpoint.write_local_heavy_shards(
-                     index.chunks, str(tmp_path), 0, 0),
-                 lambda: PORT.checkpoint._heavy_layout(index.chunks)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            call()
-    assert not list(tmp_path.iterdir())
+def test_saving_v3_raises_naming_its_item(port_store, set_both, tmp_path, monkeypatch):
+    """Saving format v3 no longer raises: the gang's writer, over a mesh of
+    four shards in one process, writes a row block a shard that holds rows,
+    its layout the shards' own, and ``_save_index_multihost`` writes a
+    directory both packages restore to the state the port saved."""
+    _populate(set_both, "bfloat16", vocab=False)
+    monkeypatch.setattr(PORT.settings, "mesh_shape", "data:4")
+    PORT.index.reset_index()
+    index = PORT.index.get_index("cpu")
+    PORT.ingest.rebuild_index_from_store()
+    chunks = index.chunks
+    rows = chunks.shard_rows
+    layout = PORT.checkpoint._heavy_layout(chunks)
+    assert layout == [(s * rows, min(rows, chunks.count - s * rows))
+                      for s in range(-(-chunks.count // rows))]
+    names = PORT.checkpoint.write_local_heavy_shards(
+        chunks, str(tmp_path / "blocks"), 0, chunks.count)
+    assert names == [f"chunks.g0000.r{start:010d}.npz" for start, _ in layout]
+    meta = PORT.checkpoint._save_index_multihost(str(tmp_path / "v3"), index)
+    assert meta["format_version"] == 3
+    assert meta["heavy_files"]["chunks"] == names
+    want = {c.name: c.state_arrays() for c in (index.chunks, index.artifacts)}
+    PORT.index.reset_index()
+    JAX.index.reset_index()
+    monkeypatch.setattr(PORT.settings, "mesh_shape", "")
+    restored = [PORT.index.get_index("cpu"), JAX.index.get_index()]
+    PORT.checkpoint.restore_index(str(tmp_path / "v3"), restored[0])
+    JAX.checkpoint.restore_index(str(tmp_path / "v3"), restored[1])
+    assert_same_index(*restored)
+    for name, state in want.items():
+        got = restored[0].corpus(name).state_arrays()
+        for key, value in state.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=f"{name} {key}")
 
 
 def test_int8_checkpoint_restores_under_bf16(port_store, set_both, tmp_path):

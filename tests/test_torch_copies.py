@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host modules give the package's
 results: settings, feature hashing, featurization (pure Python and the
 native C++ featurizer), the stub embedder and the native RRF merge and HNSW
-graph, on seeded inputs, bit for bit.
+graph, on seeded inputs, bit for bit; and the op-log's wire format
+(``parallel/oplog.py``): a message either package writes, the other reads,
+bf16 arrays included.
 
 This module also builds the JAX package's native libraries (HNSW, the
 lexical featurizer, the RRF merge) once before ``tests/unit`` is collected
@@ -595,3 +597,68 @@ def test_featurize_dispatches_to_the_native_featurizer(monkeypatch):
     for got, want in zip(native, plain):
         for g, w in zip(got, want):
             _same(g, w)
+
+
+# -- the op-log's wire format ------------------------------------------------------
+def _wire_arrays():
+    rng = np.random.default_rng(7)
+    rows = rng.standard_normal((5, 12)).astype(np.float32)
+    return {
+        "emb": torch.from_numpy(rows).to(torch.bfloat16),
+        "lex": rng.integers(-4, 5, size=(5, 16)).astype(np.int8),
+        "pos": np.array([3, 0, 9], dtype=np.int32),
+        "has": np.array([True, False, True]),
+        "q": rng.standard_normal((2, 12)).astype(np.float32),
+    }
+
+
+def _over_a_socket(send, recv, *args):
+    import socket
+    import threading
+
+    a, b = socket.socketpair()
+    try:
+        sender = threading.Thread(target=send, args=(a, *args))
+        sender.start()
+        got = recv(b)
+        sender.join(10)
+        return got
+    finally:
+        a.close()
+        b.close()
+
+
+def test_oplog_messages_cross_both_ways():
+    import jax.numpy as jnp
+
+    from cadence_rag_tpu.parallel import oplog as joplog
+    from cadence_rag_tpu_torch.parallel import oplog as toplog
+
+    arrays = _wire_arrays()
+    bf16_bits = arrays["emb"].view(torch.int16).numpy()
+    statics = {"corpus": "chunks", "start": 8, "count_after": 13,
+               "statics": {"chunk_ks": [50, 50, 50]}}
+    jax_arrays = dict(arrays, emb=jnp.asarray(arrays["emb"].float().numpy())
+                      .astype(jnp.bfloat16))
+    jax_arrays["emb"] = np.asarray(jax_arrays["emb"])  # ml_dtypes bfloat16
+    # the JAX package writes, the port reads
+    op, st, got = _over_a_socket(joplog._send_msg, toplog._recv_msg,
+                                 "write_slabs", statics, jax_arrays)
+    assert (op, st) == ("write_slabs", statics)
+    assert got["emb"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["emb"].view(torch.int16).numpy(), bf16_bits)
+    for key in ("lex", "pos", "has", "q"):
+        assert got[key].dtype == arrays[key].dtype
+        np.testing.assert_array_equal(got[key], arrays[key])
+    # the port writes, the JAX package reads
+    op, st, got = _over_a_socket(toplog._send_msg, joplog._recv_msg,
+                                 "write_slabs", statics, arrays)
+    assert (op, st) == ("write_slabs", statics)
+    assert str(got["emb"].dtype) == "bfloat16"
+    np.testing.assert_array_equal(np.asarray(got["emb"]).view(np.int16), bf16_bits)
+    for key in ("lex", "pos", "has", "q"):
+        np.testing.assert_array_equal(np.asarray(got[key]), arrays[key])
+    # an op with no arrays, and the handshake digest
+    assert _over_a_socket(toplog._send_msg, joplog._recv_msg, "shutdown", {}, {}) \
+        == ("shutdown", {}, {})
+    assert toplog._handshake_digest("t") == joplog._handshake_digest("t")

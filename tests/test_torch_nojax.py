@@ -22,7 +22,11 @@ as well: the checkpoint's bf16 rows must not need it. The third drives the
 training entry points on the CPU at a few steps: both training scripts'
 ``main`` over a store of the paraphrase corpus, the paraphrase gate, the
 rerank gate's training branch and the geometry gate's ``main`` over the
-committed embedder at a small n.
+committed embedder at a small n. The fourth runs chip_smoke.py's
+``parallel`` phase on the CPU at a tiny size: the one-process mesh of two
+shards held to the unsharded index (batches, IVF, growth, a v2 round trip),
+the two-process gang (the follower, the dist_check workers and the HTTP
+client are child processes that block jax too) and ``dist_check``.
 """
 
 import json
@@ -115,6 +119,12 @@ def test_port_runs_without_jax_pydantic_http():
         "cadence_rag_tpu_torch.evals.lexical_fidelity",
         "cadence_rag_tpu_torch.evals.gate",
         "cadence_rag_tpu_torch.evals.run_eval",
+        "cadence_rag_tpu_torch.parallel",
+        "cadence_rag_tpu_torch.parallel.mesh",
+        "cadence_rag_tpu_torch.parallel.sharded",
+        "cadence_rag_tpu_torch.parallel.oplog",
+        "cadence_rag_tpu_torch.evals.dist_check",
+        "cadence_rag_tpu_torch.scripts.build_ivf",
     }
     assert expected <= set(out["modules"])
     # only the request path's modules need the HTTP stack
@@ -396,3 +406,78 @@ def test_training_runs_without_jax():
     assert out["geometry_exit"] == 0 and geo["pass"] and geo["n"] == 2000
     assert geo["source"] == "tuned-embedder-synthetic-domain"
     assert geo["ann_recall"] >= 0.95
+
+
+PARALLEL_SCRIPT = r"""
+import json, sys
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "cadence_rag_tpu")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+from cadence_rag_tpu_torch.config import settings
+settings.embeddings_dim = 64
+settings.lexical_dim = 512
+settings.index_initial_capacity = 256
+settings.ivf_min_rows = 64
+
+import chip_smoke
+full, batches, _summary = chip_smoke.run_main_path(
+    "cpu", n_chunks=5000, n_artifacts=1500, batch=8, n_known=4)
+ivf_modes, ivf_args, _ivf = chip_smoke.run_ivf_batch(full, *chip_smoke.known_rows(4), 8)
+par = chip_smoke.run_parallel("cpu", full, batches, ivf_args, ivf_modes, 8, 4, 5000, 1500,
+                              gang_concurrency=16, gang_rounds=2, turns=1)
+local, gang, dist = par["local"], par["gang"], par["dist_check"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
+print(json.dumps({
+    "loaded": loaded, "shard_rows": local["shard_rows"],
+    "modes": [local[n]["modes"] for n in ("unscoped", "scoped")],
+    "fused_identical": [local[n]["fused_identical"] for n in ("unscoped", "scoped")],
+    "near_ties": sum(v[1] for n in ("unscoped", "scoped")
+                     for v in local[n]["lanes"].values()),
+    "ivf": [local["ivf"][k] for k in ("ids_identical", "recall_sharded_build",
+                                      "recall_unsharded_build")],
+    "growth": [local["growth"][k] for k in ("old_capacity", "capacity")],
+    "checkpoint": local["checkpoint"]["format"],
+    "dispatched": len(local["dispatched"]) > 0 and len(local["dispatched_grown"]) > 0,
+    "backend": gang["backend"], "loaded_rows": gang["oplog_load"]["rows"],
+    "delete": gang["delete"]["status"],
+    "compacted": sorted(v["capacity"] for v in gang["compaction"].values()),
+    "v3": [gang["v3_save"]["format"], gang["v3_save"]["files"]],
+    "answers": gang["answers_compared"], "follower_ops": gang["follower_ops"] > 0,
+    "shards": sorted(list(gang["launches_leader"]) + list(gang["launches_follower"])),
+    "dist": [dist["processes"], sum("MATCH" in ln for ln in dist["lines"])]}))
+"""
+
+
+def test_parallel_phase_runs_without_jax():
+    """chip_smoke's parallel phase on the CPU with jax, ml_dtypes and the JAX
+    package blocked (one intra-op thread a process: the gang's processes
+    share the machine's cores)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=400,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    # shards of 4096 chunk and 1024 artifact rows: multiples of K1's block,
+    # so even ann answers exactly as the unsharded index
+    assert out["shard_rows"] == {"chunks": 4096, "artifacts": 1024}
+    assert out["modes"] == [["ann", "ann"], ["exact", "exact"]]
+    assert out["fused_identical"] == [True, True] and out["near_ties"] == 0
+    # the sharded k-means reads both shards: the unsharded build
+    ids_identical, sharded_recall, flat_recall = out["ivf"]
+    assert ids_identical and sharded_recall == flat_recall
+    assert out["growth"] == [2048, 4096] and out["checkpoint"] == 2
+    assert out["dispatched"]
+    assert out["backend"] == "gloo" and out["loaded_rows"] == 6500
+    assert out["delete"] == 200 and out["compacted"] == [2048, 8192]
+    assert out["v3"] == [3, {"chunks": 2, "artifact_chunks": 2}]
+    assert out["answers"] == 32 and out["follower_ops"]
+    assert out["shards"] == ["artifact_chunks/0", "artifact_chunks/1",
+                             "chunks/0", "chunks/1"]
+    assert out["dist"] == [2, 2]

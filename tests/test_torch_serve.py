@@ -6,8 +6,9 @@ ingest requests and answer the same reads and retrievals; one test drives
 the port's aiohttp server over a real socket with the micro-batcher on. The
 port's ``startup`` must raise for every setting whose feature is not ported,
 and for a card that is not there, and start and serve with the in-process
-models' settings; no route is left unserved: the routes
-that once answered "not ported" answer as the JAX package's do.
+models' and the row-sharded mesh's settings (a gang's settings raise as the
+JAX package's do where they cannot make a gang); no route is left unserved:
+the routes that once answered "not ported" answer as the JAX package's do.
 """
 
 import asyncio
@@ -50,6 +51,7 @@ UNPORTED_SETTINGS = [
       "reranker_params_path": TWO_REGISTER}, "RERANK_PROVIDER=neural_raw", "item 6"),
     ({"dist_coordinator": "localhost:1234"}, "DIST_COORDINATOR", "item 7"),
     ({"mesh_shape": "data:4"}, "MESH_SHAPE", "item 7"),
+    ({"mesh_shape": "data:2,model:2"}, "MESH_SHAPE", "item 7's half of item 6"),
     ({"profiler_port": 9999}, "PROFILER_PORT", "item 2"),
     ({"embeddings_provider": "neural"}, "EMBEDDINGS_PROVIDER", "item 6"),
     ({"embeddings_provider": "qwen3", "qwen3_preset": "tiny", "embeddings_dim": 32},
@@ -207,7 +209,9 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
     """Startup raises for a setting whose feature is not ported, naming its
     ROADMAP item. Item 6's settings (the in-process embedders and the
     cross-encoder) are ported: startup takes them, and the engine serves
-    with them on the device startup named."""
+    with them on the device startup named. Item 7's index half is ported:
+    ``MESH_SHAPE=data:4`` starts and serves from four shards on the CPU, and
+    ``DIST_COORDINATOR`` alone raises for the gang's size it lacks."""
     from cadence_rag_tpu_torch.models.embedder import NeuralEmbeddingProvider
     from cadence_rag_tpu_torch.models.qwen3 import Qwen3EmbeddingProvider
     from cadence_rag_tpu_torch.models.reranker import NeuralReranker
@@ -217,8 +221,21 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
     monkeypatch.setattr(PORT.settings, "store_sync_interval_s", 0.0)
     for name, value in values.items():
         monkeypatch.setattr(PORT.settings, name, value)
+    if item == "item 7" and "dist_coordinator" in values:
+        with pytest.raises(RuntimeError, match="DIST_NUM_PROCESSES"):
+            startup("cpu")
+        return
+    if item == "item 7":
+        PORT.index.reset_index()
+        startup("cpu")
+        assert PORT.index.get_index().mesh.shape == {"data": 4}
+        ingest_corpus(PORT)
+        resp = PORT.retrieve.retrieve_evidence(
+            PORT.request({"query": "ECONNRESET object store errors"}))
+        assert resp["quotes"]
+        return
     if item != "item 6":
-        with pytest.raises(RuntimeError, match=f"{word}.*ROADMAP Queue 1 {item}"):
+        with pytest.raises(RuntimeError, match=f"{word}.*ROADMAP Queue 1:? {item}"):
             startup("cpu")
         return
     for cls in (NeuralEmbeddingProvider, Qwen3EmbeddingProvider, NeuralReranker):
@@ -237,6 +254,27 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
         prefix = {"neural": "cadence-neural-embedder-256d4L",
                   "qwen3": "qwen3-shaped-64d2L"}[values["embeddings_provider"]]
         assert notes["dense_model_id"].startswith(prefix)
+
+
+@pytest.mark.parametrize("values,message", [
+    ({"dist_coordinator": "localhost:1234", "dist_num_processes": 2},
+     "requires MESH_SHAPE"),
+    ({"dist_coordinator": "localhost", "dist_num_processes": 2,
+      "mesh_shape": "data:2"}, "cannot derive the op-log port"),
+])
+def test_gang_settings_raise_as_the_jax_package_does(port_store, monkeypatch,
+                                                     values, message):
+    """A gang without MESH_SHAPE, and a coordinator without a port (and no
+    DIST_OPLOG_PORT), raise the JAX package's errors before any process
+    group is joined."""
+    from cadence_rag_tpu_torch.parallel import mesh
+    from cadence_rag_tpu_torch.serve.api import startup
+
+    for name, value in values.items():
+        monkeypatch.setattr(PORT.settings, name, value)
+    with pytest.raises(RuntimeError, match=message):
+        startup("cpu")
+    assert mesh.gang() is None
 
 
 def test_startup_raises_for_a_store_with_a_vocab_head(port_store, monkeypatch):

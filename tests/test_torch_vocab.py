@@ -5,11 +5,11 @@ test_vocab_auto.py`` run against the port as they stand
 (``torch_parity.mirror_tests``), once with the native featurizer and once
 with the pure-Python one (the ``port_tmp_store`` fixture is parametrised):
 with a vocab active both must give the same bits, since the native library
-then supplies raw features only and numpy places them. Two of their tests do
-not apply: the op-log replay (``parallel/oplog.py`` is not ported) and the
-legacy ``hashing.doc_signature`` (the port keeps only the ``*_from_raw``
-functions); ``test_placement_matches`` holds the latter against the JAX
-package's.
+then supplies raw features only and numpy places them; the op-log replay of
+a re-featurize runs through the port's ``parallel/oplog._apply``. One of
+their tests does not apply: the legacy ``hashing.doc_signature`` (the port
+keeps only the ``*_from_raw`` functions); ``test_placement_matches`` holds
+it against the JAX package's.
 
 Then both packages on the same seeded inputs: ``apply_vocab`` and the two
 ``*_from_raw`` functions bit-equal with a vocab, the registry taking the
@@ -48,7 +48,6 @@ def port_tmp_store(port_store, request, monkeypatch):
 
 
 mirror_tests(globals(), "lex_vocab", "integration/test_lex_vocab.py", drop={
-    "TestOplogReplay": ["test_scatter_lex_apply_matches_leader"],
     "TestApplyVocabPlacement": ["test_doc_signature_from_raw_matches_legacy"],
 }, rewrites=ON_CPU)
 mirror_tests(globals(), "vocab_auto", "integration/test_vocab_auto.py",
