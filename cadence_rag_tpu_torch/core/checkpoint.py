@@ -59,7 +59,7 @@ import torch
 
 from ..config import settings
 from ..utils import events
-from .index import DeviceIndexManager, get_index
+from .index import DeviceIndexManager, dtype_name, get_index
 
 FORMAT_VERSION = 2
 MULTIHOST_FORMAT_VERSION = 3
@@ -221,7 +221,7 @@ def _save_index_multihost(path: str, index, timeout_s: float = 600.0) -> Dict:
         meta: Dict = {
             "format_version": MULTIHOST_FORMAT_VERSION,
             "generation": generation,
-            "emb_storage_dtype": str(index.chunks.emb_dtype).replace("torch.", ""),
+            "emb_storage_dtype": dtype_name(index.chunks.emb_dtype),
             "tech_layout": TECH_LAYOUT_VERSION,
             "embeddings_dim": int(settings.embeddings_dim),
             "lexical_dim": int(settings.lexical_dim),
@@ -357,7 +357,7 @@ def save_index(
         "generation": generation,
         # informational (per-shard _kind drives decode): lets operators
         # see a storage-dtype switch across a checkpoint boundary
-        "emb_storage_dtype": str(index.chunks.emb_dtype).replace("torch.", ""),
+        "emb_storage_dtype": dtype_name(index.chunks.emb_dtype),
         "tech_layout": TECH_LAYOUT_VERSION,
         "embeddings_dim": int(settings.embeddings_dim),
         "lexical_dim": int(settings.lexical_dim),

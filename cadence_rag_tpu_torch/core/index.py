@@ -125,6 +125,13 @@ INT32_MIN = -2147483648
 INT32_MAX = 2147483647
 
 _EMB_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A storage dtype as the JAX package names it ("bfloat16", "int8"):
+    the checkpoint's meta and the API's answers."""
+    return str(dtype).replace("torch.", "")
+
 # a corpus's device arrays, in the order ``device_arrays`` returns them
 DEVICE_ARRAYS = ("emb", "lex", "tech", "call_idx", "started", "has_emb")
 HOST_MIRRORS = ("h_ids", "h_call", "h_started", "h_has_emb")
@@ -256,6 +263,38 @@ def _apply_op(bufs: Sequence[torch.Tensor], op: str, args: Tuple) -> None:
         raise ValueError(f"unknown index write {op!r}")
 
 
+def _apply_sharded(shards: Dict[int, Sequence[torch.Tensor]], rows: int,
+                   op: str, args: Tuple, pos) -> None:
+    """``_apply_op`` on a row-sharded layout of ``rows`` rows a shard: each
+    row lands in the shard that owns its global position (a slab by its
+    start, a scatter or a tombstone by ``pos``, the host positions); rows
+    of shards not in ``shards`` are another process's to write."""
+    if op == "write_slabs":
+        start, *tensors = args
+        end = start + tensors[0].shape[0]
+        for s, bufs in shards.items():
+            a, b = max(start, s * rows), min(end, (s + 1) * rows)
+            if a < b:
+                dev = bufs[0].device
+                _apply_op(bufs, op, (a - s * rows, *(
+                    t[a - start:b - start].to(dev) for t in tensors)))
+        return
+    pos = np.asarray(pos, dtype=np.int64)
+    payload = args[1:]
+    for s, bufs in shards.items():
+        sel = np.flatnonzero((pos >= s * rows) & (pos < (s + 1) * rows))
+        if not sel.size:
+            continue
+        dev = bufs[0].device
+        local = torch.from_numpy(pos[sel] - s * rows).to(dev)
+        if sel.size < pos.size:
+            pick = torch.from_numpy(sel).to(payload[0].device) if payload else None
+            picked = [t.index_select(0, pick).to(dev) for t in payload]
+        else:
+            picked = [t.to(dev) for t in payload]
+        _apply_op(bufs, op, (local, *picked))
+
+
 class GrowthMigration:
     """Background capacity growth with an atomic swap.
 
@@ -263,8 +302,11 @@ class GrowthMigration:
     the corpus lock, which every dispatch takes. A migration moves that
     work off the lock: a daemon thread allocates the target buffers, fills
     their tail and copies the live arrays into their head on a side stream
-    of the device, and ``ensure_capacity`` then swaps the six tensors in
-    under the lock.
+    of each device, and ``ensure_capacity`` then swaps them in under the
+    lock. A row-sharded corpus (one process's mesh) migrates to the new
+    layout's shards: global row ``g`` of the old layout lands in shard
+    ``g // new_rows`` of the new one (the contiguous layout of
+    ``_relayout``), so a doubling moves most rows to another shard.
 
     The port's tensors are written in place, so a copy taken off the lock
     races the writers: a row written after the copy read it would be lost,
@@ -272,16 +314,18 @@ class GrowthMigration:
     swap exact is the journal: from the instant the migration starts (under
     the corpus lock, where the copy's start event is also recorded on the
     serving stream), every in-place write is recorded at its write site
-    with the device tensors it wrote, and replayed in order onto the new
-    buffers after the bulk copy. Every write is an idempotent row write
-    (``_apply_op``), so whatever the copy caught, the replay leaves each
-    row with its last written value. Stream order: the copy waits for the
-    start event; a journal entry carries an event recorded on the serving
-    stream after its write was enqueued, and the side stream waits for it
-    before replaying (the entry's tensors are marked as used there); the
-    swap makes the serving stream wait for the side stream, replays the
-    tail there, and marks the new buffers as used on the serving stream.
-    Compaction and restore renumber rows and CANCEL the migration."""
+    with the device tensors it wrote (and, sharded, its global positions),
+    and replayed in order onto the new buffers after the bulk copy of every
+    block, by global row onto the new owner shard. Every write is an
+    idempotent row write (``_apply_op``), so whatever the copy caught, the
+    replay leaves each row with its last written value. Stream order, per
+    device: the copy waits for the start event; a journal entry carries
+    events recorded on the serving streams after its write was enqueued,
+    and the side streams wait for them before replaying (the entry's
+    tensors are marked as used there); the swap makes the serving streams
+    wait for the side streams, replays the tail there, and marks the new
+    buffers as used on the serving streams. Compaction and restore
+    renumber rows and CANCEL the migration."""
 
     def __init__(self, corpus: "CorpusIndex", new_cap: int):
         self.corpus = corpus
@@ -293,32 +337,55 @@ class GrowthMigration:
         # set when the journal has entries to replay, or the thread is to end
         self._wake = threading.Event()
         self._apply_lock = threading.Lock()
-        self.bufs: Optional[Tuple[torch.Tensor, ...]] = None
+        # the new layout: the six arrays, or {shard: the six} when sharded
+        self.bufs = None
+        self._sharded = corpus.mesh is not None
         # taken under the corpus lock by ``start_migration``: the live
-        # arrays (written in place until the swap or a cancel) and the
-        # point of the serving stream the copy must not overtake
-        self._src = corpus.device_arrays()
-        self._cuda = corpus.device.type == "cuda"
-        self._stream = None
-        self._start_event = None
-        if self._cuda:
-            self._stream = torch.cuda.Stream(corpus.device)
-            self._start_event = self._mark()
+        # arrays per shard (written in place until the swap or a cancel),
+        # their rows a shard, and the point of each serving stream the copy
+        # must not overtake
+        self._src = dict(corpus.local_shards())
+        self._old_rows = corpus.shard_rows
+        self.new_rows = self.new_cap // corpus.n_shards
+        devices = {bufs[0].device for bufs in self._src.values()}
+        self._streams = {dev: torch.cuda.Stream(dev)
+                         for dev in sorted(devices, key=str) if dev.type == "cuda"}
+        self._cuda = bool(self._streams)
+        self._start_events = self._mark() if self._cuda else None
         self._thread = threading.Thread(
             target=self._run, daemon=True,
             name=f"growth-migrate-{corpus.name}",
         )
 
     def _mark(self):
-        """An event at the current end of the serving stream."""
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.corpus.device))
-        return ev
+        """An event at the current end of each device's serving stream."""
+        marks = []
+        for dev in self._streams:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            marks.append(ev)
+        return marks
+
+    def _wait(self, marks) -> None:
+        for stream in self._streams.values():
+            for ev in marks:
+                stream.wait_event(ev)
 
     def _on_side_stream(self):
-        if self._cuda:
-            return torch.cuda.stream(self._stream)
-        return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        for stream in self._streams.values():
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    def _sync(self) -> None:
+        for stream in self._streams.values():
+            stream.synchronize()
+
+    def _apply(self, op: str, args: Tuple, pos) -> None:
+        if self._sharded:
+            _apply_sharded(self.bufs, self.new_rows, op, args, pos)
+        else:
+            _apply_op(self.bufs, op, args)
 
     def start(self) -> None:
         self._thread.start()
@@ -328,31 +395,62 @@ class GrowthMigration:
         self._wake.set()
 
     # -- journal (called under corpus.lock at each write site) ----------
-    def journal_op(self, op: str, args: Tuple) -> None:
+    def journal_op(self, op: str, args: Tuple, pos=None) -> None:
         if not self.cancelled:
-            self.journal.append((op, args, self._mark() if self._cuda else None))
+            self.journal.append(
+                (op, args, pos, self._mark() if self._cuda else None))
             self._wake.set()
 
     # -- background thread ------------------------------------------------
+    def _alloc_new(self):
+        """The new layout, empty, with the rows the copy overwrites left
+        uninitialised: the old layout's rows ``[0, old capacity)``."""
+        c = self.corpus
+        if not self._sharded:
+            (rows,) = {b[0].shape[0] for b in self._src.values()}
+            return tuple(c._alloc_array(attr, self.new_cap, fill_from=rows)
+                         for attr in DEVICE_ARRAYS)
+        old_cap = self._old_rows * c.n_shards
+        new = {}
+        for t in self._src:
+            head = min(max(old_cap - t * self.new_rows, 0), self.new_rows)
+            new[t] = [c._alloc_array(attr, self.new_rows, fill_from=head,
+                                     device=c.mesh.devices[t])
+                      for attr in DEVICE_ARRAYS]
+        return new
+
+    def _copy(self, bufs) -> None:
+        """Every old row into the new layout, block by block: each (old
+        shard, new shard) pair whose global rows overlap moves one block."""
+        if not self._sharded:
+            (src,) = self._src.values()
+            for new, old in zip(bufs, src):
+                new[:old.shape[0]].copy_(old)
+            return
+        old_rows, new_rows = self._old_rows, self.new_rows
+        for t, dst in bufs.items():
+            for s, src in self._src.items():
+                a = max(t * new_rows, s * old_rows)
+                b = min((t + 1) * new_rows, (s + 1) * old_rows)
+                if a >= b:
+                    continue
+                for new, old in zip(dst, src):
+                    new[a - t * new_rows:b - t * new_rows].copy_(
+                        old[a - s * old_rows:b - s * old_rows])
+
     def _run(self) -> None:
         c = self.corpus
         try:
             with self._on_side_stream():
                 with events.timed("index.migration_alloc", corpus=c.name,
                                   cap=self.new_cap):
-                    rows = self._src[0].shape[0]
-                    bufs = tuple(
-                        c._alloc_array(attr, self.new_cap, fill_from=rows)
-                        for attr in DEVICE_ARRAYS)
-                    if self._cuda:
-                        self._stream.synchronize()
+                    bufs = self._alloc_new()
+                    self._sync()
                 with events.timed("index.migration_copy", corpus=c.name):
                     if self._cuda:
-                        self._stream.wait_event(self._start_event)
-                    for new, src in zip(bufs, self._src):
-                        new[:rows].copy_(src)
-                    if self._cuda:
-                        self._stream.synchronize()
+                        self._wait(self._start_events)
+                    self._copy(bufs)
+                    self._sync()
             if self.cancelled:
                 return
             self.bufs = bufs
@@ -374,34 +472,44 @@ class GrowthMigration:
         n = 0
         with self._apply_lock, self._on_side_stream():
             while self.journal and n < limit and not self.swapped:
-                op, args, written = self.journal.popleft()
+                op, args, pos, written = self.journal.popleft()
                 if written is not None:
-                    self._stream.wait_event(written)
+                    self._wait(written)
                     for t in args:
                         if isinstance(t, torch.Tensor):
-                            t.record_stream(self._stream)
-                _apply_op(self.bufs, op, args)
+                            for stream in self._streams.values():
+                                if t.device == stream.device:
+                                    t.record_stream(stream)
+                self._apply(op, args, pos)
                 n += 1
         return n
 
     # -- swap (called under corpus.lock) ---------------------------------
-    def finalize(self) -> Tuple[torch.Tensor, ...]:
+    def finalize(self):
         """Drain the journal tail onto the new buffers, on the serving
-        stream, and hand them over. The caller holds the corpus lock, so no
-        new journal entries can appear."""
+        streams, and hand them over. The caller holds the corpus lock, so
+        no new journal entries can appear."""
         with self._apply_lock:
             self.swapped = True
             self._wake.set()
             if self._cuda:
-                serving = torch.cuda.current_stream(self.corpus.device)
-                replayed = torch.cuda.Event()
-                replayed.record(self._stream)
-                serving.wait_event(replayed)
-                for t in self.bufs:
-                    t.record_stream(serving)
+                replayed = []
+                for stream in self._streams.values():
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    replayed.append(ev)
+                shards = self.bufs.values() if self._sharded else [self.bufs]
+                for dev in self._streams:
+                    serving = torch.cuda.current_stream(dev)
+                    for ev in replayed:
+                        serving.wait_event(ev)
+                    for bufs in shards:
+                        for t in bufs:
+                            if t.device == dev:
+                                t.record_stream(serving)
             while self.journal:
-                op, args, _written = self.journal.popleft()
-                _apply_op(self.bufs, op, args)
+                op, args, pos, _written = self.journal.popleft()
+                self._apply(op, args, pos)
             return self.bufs
 
 
@@ -445,9 +553,9 @@ class CorpusIndex:
                 raise ValueError(
                     f"{name}: capacity {self.capacity} does not divide the "
                     f"mesh's data axis ({self.n_shards})")
-            for s in mesh.local_positions():
-                sharded_mod._check_shard_rows(
-                    name, mesh.devices[s], self.capacity // self.n_shards)
+            # on CUDA each shard's rows round up to K1's block, as growth's
+            # do: the reported capacity may exceed the JAX package's
+            self.capacity = self._shard_cap(self.capacity)
         self.emb_dtype = _EMB_DTYPES[emb_dtype]
         self.count = 0
         # single writer; the lock makes buffer swaps (growth, restore)
@@ -748,8 +856,12 @@ class CorpusIndex:
                     and mig.new_cap >= need):
                 with events.timed("index.growth_swap", corpus=self.name,
                                   cap=mig.new_cap):
-                    (self.emb, self.lex, self.tech, self.call_idx,
-                     self.started, self.has_emb) = mig.finalize()
+                    bufs = mig.finalize()
+                    if self.mesh is not None:
+                        self._shards = bufs
+                    else:
+                        (self.emb, self.lex, self.tech, self.call_idx,
+                         self.started, self.has_emb) = bufs
                     self.capacity = mig.new_cap
                     self._grow_host_mirrors(mig.new_cap)
                 self._migration = None
@@ -776,14 +888,14 @@ class CorpusIndex:
         self._grow_to(self._shard_cap(max(cap, need)))
 
     def start_migration(self, new_cap: int) -> bool:
-        """Begin background growth toward ``new_cap`` (idempotent). Hot
-        tier only: a corpus with a cold tier caps its device rows. A
-        row-sharded corpus stands down to the synchronous growth: growth
-        moves rows between shards (and processes), which the journal's
-        replay onto one device's buffers does not."""
-        if (self.max_device_rows or self.mesh is not None
+        """Begin background growth toward ``new_cap`` (rounded to a layout
+        the mesh shards; idempotent). One process only, row-sharded or not:
+        a gang mirrors "grow" synchronously over the op-log. Hot tier only:
+        a corpus with a cold tier caps its device rows."""
+        if (_multiprocess() or self.max_device_rows
                 or not settings.growth_migration_enabled):
             return False
+        new_cap = self._shard_cap(int(new_cap))
         with self.lock:
             if new_cap <= self.capacity:
                 return False
@@ -813,39 +925,12 @@ class CorpusIndex:
         (``pos``: the host positions of a scatter or a tombstone); rows of
         shards another process holds are that process's to write."""
         if self.mesh is not None:
-            self._write_shards(op, args, pos)
-            return
-        _apply_op(self.device_arrays(), op, args)
+            _apply_sharded(self._shards, self.shard_rows, op, args, pos)
+        else:
+            _apply_op(self.device_arrays(), op, args)
         mig = self._migration
         if mig is not None:
-            mig.journal_op(op, args)
-
-    def _write_shards(self, op: str, args: Tuple, pos) -> None:
-        rows = self.shard_rows
-        if op == "write_slabs":
-            start, *tensors = args
-            end = start + tensors[0].shape[0]
-            for s, bufs in self._shards.items():
-                a, b = max(start, s * rows), min(end, (s + 1) * rows)
-                if a < b:
-                    dev = bufs[0].device
-                    _apply_op(bufs, op, (a - s * rows, *(
-                        t[a - start:b - start].to(dev) for t in tensors)))
-            return
-        pos = np.asarray(pos, dtype=np.int64)
-        payload = args[1:]
-        for s, bufs in self._shards.items():
-            sel = np.flatnonzero((pos >= s * rows) & (pos < (s + 1) * rows))
-            if not sel.size:
-                continue
-            dev = bufs[0].device
-            local = torch.from_numpy(pos[sel] - s * rows).to(dev)
-            if sel.size < pos.size:
-                pick = torch.from_numpy(sel).to(payload[0].device) if payload else None
-                picked = [t.index_select(0, pick).to(dev) for t in payload]
-            else:
-                picked = [t.to(dev) for t in payload]
-            _apply_op(bufs, op, (local, *picked))
+            mig.journal_op(op, args, pos)
 
     # -- ingest -----------------------------------------------------------
     def insert(self, rows: Sequence[DocRow]) -> None:
@@ -1918,6 +2003,14 @@ class DeviceIndexManager:
             corpus._on_insert = self.prewarmer.maybe_prewarm
             corpus._grow_planner = self.prewarmer.growth_cap
 
+    def cancel_migrations(self) -> None:
+        """Cancel both corpora's background growth: a migration's thread
+        holds its corpus and both buffer sets until a swap or a cancel, so
+        an index that is dropped must cancel it to free them."""
+        for corpus in (self.chunks, self.artifacts):
+            with corpus.lock:
+                corpus._cancel_migration_locked()
+
     def ensure_call_capacity(self, n_calls: int) -> None:
         while self.call_capacity < n_calls:
             self.call_capacity *= 2
@@ -2305,6 +2398,8 @@ def get_index(device: Optional[DeviceLike] = None) -> DeviceIndexManager:
 def reset_index() -> None:
     global _index
     with _index_lock:
+        if _index is not None:
+            _index.cancel_migrations()
         _index = None
     # the active lexical vocab belongs to the (store, index) pair; a fresh
     # index must not inherit a previous corpus's head layout

@@ -338,7 +338,7 @@ def _dispatch_plans(plans: Sequence[QueryPlan]) -> List[Tuple]:
             if dense_on else None
         )
         # a named region in torch.profiler traces; no-op when none is active
-        with torch.profiler.record_function("retrieve_device_dispatch"):
+        with torch.profiler.record_function("retrieve.dispatch"):
             disp = index.query_both_packed_async(
                 q_emb, [p.q_lex_feats for p in group], q_tech,
                 allowed, date_min, date_max,

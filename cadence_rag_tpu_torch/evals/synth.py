@@ -347,6 +347,22 @@ def bulk_store_rows(
     from ..utils.timeutil import now_utc, to_iso
 
     now = to_iso(now_utc())
+    with store.read() as conn:
+        # a page cache that holds the bulk rows' transaction: pages are
+        # written once at commit, not spilled to the log as it fills (at
+        # 1M rows minutes become seconds); the store's own size after it
+        cache_size = conn.execute("PRAGMA cache_size").fetchone()[0]
+        conn.execute("PRAGMA cache_size = -1048576")
+    try:
+        return _bulk_rows(store, n_chunks, n_artifacts, n_calls, call_ids,
+                          chunk_text, artifact_text, now)
+    finally:
+        with store.read() as conn:
+            conn.execute(f"PRAGMA cache_size = {int(cache_size)}")
+
+
+def _bulk_rows(store, n_chunks, n_artifacts, n_calls, call_ids, chunk_text,
+               artifact_text, now) -> List[str]:
     if call_ids is None:
         call_ids = [f"00000000-0000-4000-8000-{s:012d}" for s in range(n_calls)]
         with store.tx() as conn:

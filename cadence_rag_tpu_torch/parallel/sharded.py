@@ -53,8 +53,7 @@ from . import mesh as mesh_mod
 SHARD_ROWS_RULE = (
     "{name}: each shard holds {rows} rows; on CUDA a shard's rows must be a "
     "multiple of K1's {block}-row block, so that its strided 8-row groups "
-    "are the unsharded index's (INDEX_INITIAL_CAPACITY / the data axis "
-    "must be a multiple of {block})")
+    "are the unsharded index's (the index rounds its shards up to it)")
 
 # K1 and K3 launches of the index path, per corpus and shard, added by the
 # kernels' wrappers where they launch (``kernels/build.count_launch``):

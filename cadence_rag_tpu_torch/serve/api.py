@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from pydantic import ValidationError
 
 from ..config import settings
-from ..core.index import get_index
+from ..core.index import dtype_name, get_index
 from ..device import DeviceLike, pin_f32_matmul, set_models_device
 from ..engine.browse import expand_evidence, get_call, get_chunk, list_calls
 from ..engine.retrieve import retrieve_evidence
@@ -172,7 +172,11 @@ def diagnostics(_req: Request):
             "chunks": index.chunks.count,
             "artifact_chunks": index.artifacts.count,
             "chunk_capacity": index.chunks.capacity,
-            "embedding_dtype": str(index.chunks.emb_dtype),
+            "embedding_dtype": dtype_name(index.chunks.emb_dtype),
+            "mesh": (
+                {axis: int(size) for axis, size in index.mesh.shape.items()}
+                if index.mesh is not None else None
+            ),
             "ivf": (
                 {
                     "built_count": index.chunks.ivf.built_count,
@@ -371,7 +375,7 @@ def index_stats_endpoint(_req: Request):
             "avgdl": corpus.avgdl,
             "lexical_dim": corpus.lex_dim,
             "dim": corpus.dim,
-            "emb_dtype": str(corpus.emb_dtype),
+            "emb_dtype": dtype_name(corpus.emb_dtype),
             "tombstones": corpus.tombstones,
             "ivf_built": corpus.ivf is not None,
         }
@@ -397,6 +401,10 @@ def index_stats_endpoint(_req: Request):
         "chunks": corpus_stats(index.chunks),
         "artifact_chunks": corpus_stats(index.artifacts),
         "call_capacity": index.call_capacity,
+        # JAX's count of growth programs compiled ahead of time; eager torch
+        # compiles nothing per capacity (the AOT half of core/prewarm.py is
+        # out of the port's scope), so none is ever compiled
+        "prewarm_compiled": 0,
         # store->index sync observability: lag = mutations not yet
         # applied to this process's device index (ingest/sync.py)
         "sync": {
@@ -426,11 +434,6 @@ def _unported_settings() -> List[str]:
             f"MESH_SHAPE axes {model_axes}: the model axis (tensor-parallel "
             "Qwen3 and embedder weights) is not ported yet (ROADMAP Queue 1: "
             "item 7's half of item 6); the port shards rows over data only")
-    if int(settings.profiler_port) > 0:
-        problems.append(
-            f"PROFILER_PORT={settings.profiler_port}: the profiler server "
-            "is not ported yet (ROADMAP Queue 1 item 2); trace with "
-            "torch.profiler in-process")
     return problems
 
 
@@ -501,7 +504,8 @@ def startup(device: DeviceLike = "cuda") -> None:
     populated in this process (a restored checkpoint) must carry the
     store's vocab, by content, and is reconciled with the store (writes and
     deletes it missed); the store syncer starts when
-    ``STORE_SYNC_INTERVAL_S > 0``."""
+    ``STORE_SYNC_INTERVAL_S > 0``, and the trace listener
+    (``serve/profiler.py``) when ``PROFILER_PORT > 0``."""
     configure_logging(settings.log_level)
     problems = _unported_settings()
     if problems:
@@ -570,6 +574,11 @@ def startup(device: DeviceLike = "cuda") -> None:
             "api.startup ivf_built rows=%s clusters=%s nprobe=%s",
             state.built_count, state.n_clusters, state.nprobe,
         )
+    if int(settings.profiler_port) > 0:
+        # the JAX package's profiler server: traces on demand over HTTP
+        from .profiler import start_server
+
+        start_server(int(settings.profiler_port))
     logger.info("api.startup complete device=%s", index.device)
 
 

@@ -67,11 +67,49 @@ mirror_tests(globals(), "capacity_growth", "integration/test_capacity_growth.py"
              rewrites=ON_CPU_BF16)
 mirror_tests(globals(), "growth_migration", "integration/test_growth_migration.py",
              rewrites=ON_CPU_BF16)
+# The same migration cases under a one-process mesh of data:2, in both
+# packages: the corpus row-sharded over two CPU devices, its arrays read
+# back whole (the port's shards gathered in row order).
+ON_DATA2_PORT = ON_CPU_BF16 + (
+    (r'device=__import__\("torch"\)\.device\("cpu"\),',
+     r'\g<0> mesh=__import__("cadence_rag_tpu_torch.parallel.mesh", '
+     r'fromlist=["make_mesh"]).make_mesh("data:2", device="cpu"),'),
+    (r"\b(\w+)\.(emb|lex|tech|call_idx|started|has_emb)\[",
+     r'\1._gather_rows("\2", \1.count)['),
+)
+ON_DATA2_JAX = (
+    (r'emb_dtype="float32",',
+     r'\g<0> row_sharding=__import__("jax").sharding.NamedSharding('
+     r'__import__("cadence_rag_tpu.parallel.mesh", fromlist=["make_mesh"])'
+     r'.make_mesh("data:2", __import__("jax").devices()[:2]), '
+     r'__import__("jax").sharding.PartitionSpec("data", None)),'),
+)
+mirror_tests(globals(), "growth_migration_data2",
+             "integration/test_growth_migration.py", rewrites=ON_DATA2_PORT)
+mirror_tests(globals(), "jax_growth_migration_data2",
+             "integration/test_growth_migration.py", rewrites=ON_DATA2_JAX,
+             port=False)
 
 
 def test_the_mirrored_tests_ran_against_the_port():
-    for stem in ("capacity_growth", "growth_migration"):
+    for stem in ("capacity_growth", "growth_migration", "growth_migration_data2"):
         assert sys.modules[f"{__name__}.{stem}"].CorpusIndex is CorpusIndex
+    assert (sys.modules[f"{__name__}.jax_growth_migration_data2"].CorpusIndex
+            is JaxCorpus)
+
+
+def test_the_data2_cases_run_sharded(port_store):
+    """The rewrites reach the corpus: both packages' data:2 corpora are
+    row-sharded over two devices, and a migration runs under them."""
+    port_c = sys.modules[f"{__name__}.growth_migration_data2"]._corpus()
+    jax_c = sys.modules[f"{__name__}.jax_growth_migration_data2"]._corpus()
+    assert port_c.mesh is not None and port_c.n_shards == 2
+    assert len(port_c.local_shards()) == 2
+    assert jax_c.row_sharding is not None
+    assert len(jax_c.emb.sharding.device_set) == 2
+    port_c.insert(_rows(1, 40, dim=16, lex_dim=64, slots=4))
+    assert port_c.start_migration(128)
+    assert port_c._migration.ready.wait(30)
 
 
 # -- the planner ----------------------------------------------------------------------
@@ -284,16 +322,18 @@ def test_migrated_state_matches_the_jax_package(port_store, emb_dtype):
 class NoReplay(GrowthMigration):
     """A migration whose journal is thrown away: the copy alone."""
 
-    def journal_op(self, op, args):
+    def journal_op(self, op, args, pos=None):
         pass
 
 
-def _churn(replay: bool, monkeypatch):
+def _churn(replay: bool, monkeypatch, mesh=None):
     """Two corpora take the same writes from one writer thread; one grows
     through a migration whose copy is slowed so that writes land while it
-    runs, the other synchronously. -> (migrated, synchronous) state."""
+    runs, the other synchronously. ``mesh`` shards both. -> (migrated,
+    synchronous) state."""
     kw = dict(dim=16, lex_dim=64, tech_slots=4, capacity=256, device=CPU)
-    mig_c, sync_c = CorpusIndex("chunks", **kw), CorpusIndex("chunks", **kw)
+    mig_c = CorpusIndex("chunks", mesh=mesh, **kw)
+    sync_c = CorpusIndex("chunks", mesh=mesh, **kw)
     if not replay:
         monkeypatch.setattr(port_index_mod, "GrowthMigration", NoReplay)
     first = _rows(1, 200, dim=16, lex_dim=64, slots=4)
@@ -301,9 +341,9 @@ def _churn(replay: bool, monkeypatch):
         c.insert(first)
     real_alloc = mig_c._alloc_array
 
-    def slow_alloc(attr, cap, fill_from=0):
+    def slow_alloc(attr, cap, fill_from=0, **kw):
         time.sleep(0.02)            # the writer gets in between the arrays
-        return real_alloc(attr, cap, fill_from)
+        return real_alloc(attr, cap, fill_from, **kw)
 
     monkeypatch.setattr(mig_c, "_alloc_array", slow_alloc)
     stop = threading.Event()
@@ -337,16 +377,18 @@ def _churn(replay: bool, monkeypatch):
         assert mig_c.start_migration(512)
         _wait_ready(mig_c)
         time.sleep(0.05)           # the writer goes on after the copy
-        # and writes that certainly land after the copy, before the swap
-        for c in (mig_c, sync_c):
-            c.set_tech([1, 2, 3], np.full((3, 4), 77, np.int32))
-            c.set_lex([4], np.full((1, 64), 5, np.int8))
-            c.set_embeddings([5], np.full((1, 16), 0.25, np.float32))
-            c.delete_ids([6])
     finally:
         stop.set()
         thread.join(60)
     assert not errors, errors[0]
+    # and writes that certainly land after the copy, before the swap, once
+    # the writer has stopped: written beside it, the two corpora could take
+    # one row's writes in two orders
+    for c in (mig_c, sync_c):
+        c.set_tech([1, 2, 3], np.full((3, 4), 77, np.int32))
+        c.set_lex([4], np.full((1, 64), 5, np.int8))
+        c.set_embeddings([5], np.full((1, 16), 0.25, np.float32))
+        c.delete_ids([6])
     late = _rows(5000, 100, dim=16, lex_dim=64, slots=4)
     for c in (mig_c, sync_c):
         c.insert(late)             # past 256 rows: the swap, or the growth
@@ -366,3 +408,42 @@ def test_a_migration_without_the_replay_loses_writes(port_store, monkeypatch):
     got, want = _churn(False, monkeypatch)
     assert any(not np.array_equal(got[key], want[key])
                for key in ("emb", "lex", "tech", "started"))
+
+
+def _data2():
+    from cadence_rag_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh("data:2", device="cpu")
+
+
+def test_writers_beside_a_sharded_migration_lose_nothing(port_store, monkeypatch):
+    """The writer beside a migration under data:2: a doubling moves rows
+    [128, 256) of shard 0 to shard 1, and the journal replays each write by
+    global row onto its new owner shard."""
+    got, want = _churn(True, monkeypatch, mesh=_data2())
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_a_sharded_migration_without_the_replay_loses_writes(port_store, monkeypatch):
+    got, want = _churn(False, monkeypatch, mesh=_data2())
+    assert any(not np.array_equal(got[key], want[key])
+               for key in ("emb", "lex", "tech", "started"))
+
+
+def test_reset_index_ends_a_ready_migration(port_store):
+    """A migration that stands ready holds its corpus and both buffer sets
+    on its thread until a swap or a cancel: dropping the process-wide index
+    cancels it, and the thread ends (a harness that builds one index after
+    another would otherwise keep every one of them on the device)."""
+    index = port_index_mod.get_index()
+    corpus = index.chunks
+    corpus.insert(_rows(1, 200, dim=corpus.dim, lex_dim=corpus.lex_dim,
+                        slots=corpus.tech_slots))
+    assert corpus.start_migration(2 * corpus.capacity)
+    mig = corpus._migration
+    assert mig.ready.wait(30)
+    port_index_mod.reset_index()
+    mig._thread.join(10)
+    assert mig.cancelled and not mig._thread.is_alive()
+    assert corpus._migration is None

@@ -14,6 +14,7 @@ the routes that once answered "not ported" answer as the JAX package's do.
 import asyncio
 import sqlite3
 import sys
+import urllib.error
 from pathlib import Path
 
 import numpy as np
@@ -117,7 +118,9 @@ def test_health_and_diagnostics(clients):
     port, jax = _both(clients, "GET", "/diagnostics")
     assert port.json()["status"] == jax.json()["status"] == "ok"
     assert port.json()["index"]["device"] == "cpu"
-    assert "mesh" not in port.json()["index"]
+    p, j = port.json()["index"], jax.json()["index"]
+    assert p["mesh"] is None and j["mesh"] is None
+    assert p["embedding_dtype"] == j["embedding_dtype"] == "bfloat16"
 
 
 def test_ingest_responses_match(seeded, clients):
@@ -128,10 +131,10 @@ def test_ingest_responses_match(seeded, clients):
     p, j = port.json(), jax.json()
     for corpus in ("chunks", "artifact_chunks"):
         for key in ("count", "capacity", "embedded", "avgdl", "lexical_dim", "dim",
-                    "tombstones", "ivf_built"):
+                    "emb_dtype", "tombstones", "ivf_built"):
             assert p[corpus][key] == j[corpus][key], (corpus, key)
     assert p["call_capacity"] == j["call_capacity"]
-    assert "prewarm_compiled" not in p
+    assert p["prewarm_compiled"] == j["prewarm_compiled"] == 0
     # both syncers stand at their store's newest mutation
     assert p["sync"].keys() == j["sync"].keys()
     assert p["sync"]["store_seq"] == j["sync"]["store_seq"] > 0
@@ -224,6 +227,16 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
     if item == "item 7" and "dist_coordinator" in values:
         with pytest.raises(RuntimeError, match="DIST_NUM_PROCESSES"):
             startup("cpu")
+        return
+    if item == "item 2":
+        # ported: startup starts the trace listener (serve/profiler.py)
+        from cadence_rag_tpu_torch.serve import profiler
+
+        try:
+            startup("cpu")
+            assert values["profiler_port"] in profiler._servers
+        finally:
+            profiler.stop_server()
         return
     if item == "item 7":
         PORT.index.reset_index()
@@ -339,6 +352,72 @@ def test_entry_points_default_to_the_card(port_store, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         http.main()
     assert PORT.index._index is None
+
+
+@pytest.mark.parametrize("shape", ["data:2", "data:8"])
+def test_diagnostics_name_the_mesh_as_the_jax_package_does(port_store, set_both,
+                                                          monkeypatch, shape):
+    """``index.mesh``: null unsharded (above), the index's axis sizes under
+    ``MESH_SHAPE`` in both packages (the JAX package's mesh over as many of
+    the test process's eight CPU devices as the shape names)."""
+    import jax
+
+    from cadence_rag_tpu.parallel import mesh as jax_mesh
+
+    size = int(shape.split(":")[1])
+    real = jax_mesh.make_mesh
+    monkeypatch.setattr(jax_mesh, "make_mesh",
+                        lambda spec=None, devices=None: real(spec, jax.devices()[:size]))
+    set_both("store_sync_interval_s", 0.0)
+    set_both("mesh_shape", shape)
+    for pkg in (JAX, PORT):
+        pkg.index.reset_index()
+    clients = {JAX.root: JAX.testing.TestClient(),
+               PORT.root: PORT.testing.TestClient(device="cpu")}
+    port, jax = _both(clients, "GET", "/diagnostics")
+    assert port.json()["index"]["mesh"] == jax.json()["index"]["mesh"] == {"data": size}
+
+
+def test_profiler_port_serves_a_trace_of_what_is_served(seeded, clients, monkeypatch):
+    """With ``PROFILER_PORT`` set, startup's listener answers ``GET
+    /trace?ms=200`` with a Chrome trace of the process: retrieves served on
+    another thread during the capture show as ``retrieve.dispatch``."""
+    import json
+    import socket
+    import threading
+    import urllib.request
+
+    from cadence_rag_tpu_torch.serve import profiler
+    from cadence_rag_tpu_torch.serve.api import startup
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setattr(PORT.settings, "profiler_port", port)
+    startup("cpu")
+    stop = threading.Event()
+    served = []
+
+    def serve():
+        while not stop.is_set():
+            served.append(clients[PORT.root].post(
+                "/retrieve", json={"query": "ECONNRESET rollback v2.3.1"}).status_code)
+
+    thread = threading.Thread(target=serve)
+    thread.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/trace?ms=200", timeout=60) as resp:
+            trace = json.loads(resp.read())
+        with pytest.raises(urllib.error.HTTPError, match="422"):
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/trace?ms=0", timeout=60)
+    finally:
+        stop.set()
+        thread.join(60)
+        profiler.stop_server()
+    names = {ev.get("name") for ev in trace["traceEvents"]}
+    assert "retrieve.dispatch" in names, sorted(n for n in names if n)[:40]
+    assert served and set(served) == {200}
 
 
 def test_aiohttp_roundtrip_with_batching(seeded, monkeypatch):

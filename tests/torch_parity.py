@@ -81,7 +81,8 @@ def _is_fixture(obj) -> bool:
             or getattr(obj, "_pytestfixturefunction", None) is not None)
 
 
-def mirror_tests(into: dict, stem: str, rel: str, drop=None, rewrites=()):
+def mirror_tests(into: dict, stem: str, rel: str, drop=None, rewrites=(),
+                 port=True):
     """Compile one of the JAX package's own test files against the port and
     bind its tests (prefixed with ``stem``) and fixtures into the test
     module whose globals are ``into``. The package's name is rewritten where
@@ -92,14 +93,18 @@ def mirror_tests(into: dict, stem: str, rel: str, drop=None, rewrites=()):
     further (pattern, replacement) pairs; ``drop`` maps a class name to the
     test methods (or None to a list of module-level tests) that do not
     apply to the port and are held by tests of the module's own instead.
-    -> the compiled module."""
+    -> the compiled module. With ``port=False`` the file stays the JAX
+    package's (only ``rewrites`` apply): the same cases run against the
+    reference under the same rewrites."""
     source = (TESTS / rel).read_text()
     assert "cadence_rag_tpu_torch" not in source
-    source = re.sub(r"^(\s*(?:from|import)\s+)cadence_rag_tpu\b",
-                    r"\1cadence_rag_tpu_torch", source, flags=re.M)
-    source = re.sub(r"([\"'])cadence_rag_tpu\.", r"\1cadence_rag_tpu_torch.", source)
-    assert not re.search(r"cadence_rag_tpu(?!_torch\b)", source), rel
-    source = re.sub(r"\btmp_store\b", "port_tmp_store", source)
+    if port:
+        source = re.sub(r"^(\s*(?:from|import)\s+)cadence_rag_tpu\b",
+                        r"\1cadence_rag_tpu_torch", source, flags=re.M)
+        source = re.sub(r"([\"'])cadence_rag_tpu\.", r"\1cadence_rag_tpu_torch.",
+                        source)
+        assert not re.search(r"cadence_rag_tpu(?!_torch\b)", source), rel
+        source = re.sub(r"\btmp_store\b", "port_tmp_store", source)
     for pattern, replacement in rewrites:
         source = re.sub(pattern, replacement, source)
     module = types.ModuleType(f"{into['__name__']}.{stem}")
@@ -123,6 +128,46 @@ def mirror_tests(into: dict, stem: str, rel: str, drop=None, rewrites=()):
             assert name not in into or into[name] is obj, name
             into[name] = obj
     return module
+
+
+# The JAX package's API, request-path and store test files that run against
+# the port as they stand (``tests/test_torch_mirrored_*.py``), with the port's
+# router client asked for the CPU. Files that define fixtures of one name
+# (``client``, ``corpus``) go to different test files.
+MIRRORED_FILES = {
+    "api": "integration/test_api.py",
+    "edge_cases": "integration/test_edge_cases.py",
+    "http_server": "integration/test_http_server.py",
+    "batcher": "integration/test_batcher.py",
+    "batch_retrieve": "integration/test_batch_retrieve.py",
+    "concurrency": "integration/test_concurrency.py",
+    "delete_compact": "integration/test_delete_compact.py",
+    "store_sync": "integration/test_store_sync.py",
+    "embed_cache": "unit/test_embed_cache.py",
+    "embed_pipeline": "unit/test_embed_pipeline.py",
+    "locks": "unit/test_locks.py",
+    "schemas": "unit/test_schemas.py",
+    "store": "unit/test_store.py",
+    "chunking": "unit/test_chunking.py",
+}
+CLIENT_ON_CPU = ((r"\bTestClient\(\)", 'TestClient(device="cpu")'),)
+
+
+def mirror_files(into: dict, stems, drop=None) -> None:
+    """``mirror_tests`` for each of ``stems`` (keys of ``MIRRORED_FILES``),
+    the router client on the CPU; ``drop`` maps a stem to its drop map."""
+    for stem in stems:
+        mirror_tests(into, stem, MIRRORED_FILES[stem], drop=(drop or {}).get(stem),
+                     rewrites=CLIENT_ON_CPU)
+
+
+def assert_mirrored_against_the_port(module_name: str, stems) -> None:
+    """Each compiled file's names come from the port, none from the JAX
+    package."""
+    for stem in stems:
+        names = vars(sys.modules[f"{module_name}.{stem}"])
+        assert not any(getattr(v, "__module__", "").startswith("cadence_rag_tpu.")
+                       for v in names.values()), stem
 
 
 JAX = Package("cadence_rag_tpu")
