@@ -35,8 +35,9 @@ v2 from its shards. v1, generation-less v2 and v3 checkpoints restore, into
 a sharded index too (the rows land in the shards that own them).
 
 Format v3 is the gang's (``_save_index_multihost``): every process writes
-the heavy row blocks (emb/lex/tech) of the shards it holds, one file a
-shard, ``{name}.g{G:04d}.r{start:010d}.npz``, through the op-log's mirrored
+the heavy row blocks (emb/lex/tech) of the data shards it owns (a shard
+replicated along a ``model`` axis is written by the lowest process holding
+it), one file a shard, ``{name}.g{G:04d}.r{start:010d}.npz``, through the op-log's mirrored
 "checkpoint_shards" op; the leader writes the per-row scalars (its host
 mirrors) and the lexical stats, polls for the followers' files, and flips
 ``meta.json`` last. A shared filesystem is assumed.
@@ -151,10 +152,12 @@ def _heavy_name(corpus_name: str, gen: str, start: int) -> str:
 
 def write_local_heavy_shards(corpus, path: str, generation: int,
                              count: int) -> list:
-    """Write THIS process's row blocks of the heavy arrays (emb/lex/tech),
-    trimmed to ``count``; the leader calls it directly, followers through
-    the op-log's "checkpoint_shards". Files land atomically (tmp + rename)
-    so the leader can poll for them. -> the file names written"""
+    """Write the row blocks of the heavy arrays (emb/lex/tech) of the data
+    shards THIS process owns (holds, and is the lowest process holding:
+    a shard replicated along ``model`` is written once), trimmed to
+    ``count``; the leader calls it directly, followers through the op-log's
+    "checkpoint_shards". Files land atomically (tmp + rename) so the leader
+    can poll for them. -> the file names written"""
     import os
 
     out = Path(path)
@@ -162,10 +165,11 @@ def write_local_heavy_shards(corpus, path: str, generation: int,
     gen = f"g{generation:04d}"
     rows_per = corpus.shard_rows
     written = []
+    mesh = corpus.mesh
     for s, arrays in corpus.local_shards():
         start = s * rows_per
         rows = max(0, min(rows_per, count - start))
-        if rows <= 0:
+        if rows <= 0 or (mesh is not None and mesh.shard_holders(s)[0] != mesh.rank):
             continue
         emb, lex, tech = (a[:rows].cpu() for a in arrays[:3])
         if emb.dtype == torch.bfloat16:

@@ -19,14 +19,18 @@ whose blocks stream through the same lane program; capacity growth may run
 as a background ``GrowthMigration``; ``checkpoint_arrays`` and
 ``load_state_streaming`` are the checkpoint's side (``core/checkpoint.py``).
 
-Row sharding (``MESH_SHAPE=data:N``, ``parallel/``): a corpus built with a
-mesh holds one set of the six arrays per shard instead, in JAX's contiguous
-layout (shard ``i`` owns rows ``[i*cap/N, (i+1)*cap/N)``, on the mesh's
-device ``i``), so a v3 checkpoint's row blocks mean the same rows in both
-packages. Every write lands each row in the shard that owns its global
-position (``_write``); growth and compaction move rows to the shards the
-new layout gives them (``_relayout``); queries run each shard's lanes and
-merge the candidates (``parallel/sharded.py``). The cold tier and a mesh
+Row sharding (``MESH_SHAPE=data:N``, any other axes, ``parallel/``): a
+corpus built with a mesh holds one set of the six arrays per data shard
+instead, in JAX's contiguous layout (shard ``i`` owns rows
+``[i*cap/N, (i+1)*cap/N)``, on the device of the lowest position of data
+index ``i`` this process holds), so a v3 checkpoint's row blocks mean the
+same rows in both packages. A ``model`` axis replicates the rows, as JAX's
+``P("data", None)`` does: one process keeps and computes each data shard
+once, and a gang's processes that share a shard each hold a copy. Every
+write lands each row in the shard that owns its global position
+(``_write``); growth and compaction move rows to the shards the new layout
+gives them (``_relayout``); queries run each shard's lanes and merge the
+candidates (``parallel/sharded.py``). The cold tier and a mesh
 are mutually exclusive, and a sharded corpus grows synchronously: the
 background migration replays writes onto one device's buffers, and stands
 down under a mesh. In a multi-process gang (``DIST_COORDINATOR``) each
@@ -415,7 +419,7 @@ class GrowthMigration:
         for t in self._src:
             head = min(max(old_cap - t * self.new_rows, 0), self.new_rows)
             new[t] = [c._alloc_array(attr, self.new_rows, fill_from=head,
-                                     device=c.mesh.devices[t])
+                                     device=c.shard_devices[t])
                       for attr in DEVICE_ARRAYS]
         return new
 
@@ -539,10 +543,13 @@ class CorpusIndex:
         # shards this process holds: {global shard: [the six arrays]}
         self._shards: Dict[int, List[torch.Tensor]] = {}
         self.n_shards = sharded_mod.data_shards(mesh) if mesh is not None else 1
+        # {data shard: its device} of the shards this process holds, each
+        # once (a model axis replicates the rows: ``Mesh.local_shards``)
+        self.shard_devices = mesh.local_shards() if mesh is not None else {}
         if mesh is not None:
             # merges, staging and derived state live on the first shard's
             # device of this process
-            device = mesh.devices[mesh.local_positions()[0]]
+            device = next(iter(self.shard_devices.values()))
         self.device = device
         self.dim = dim
         self.lex_dim = lex_dim
@@ -645,9 +652,9 @@ class CorpusIndex:
     def _alloc_shards(self, cap: int) -> Dict[int, List[torch.Tensor]]:
         """This process's shards of a layout of ``cap`` rows, empty."""
         rows = cap // self.n_shards
-        return {s: [self._alloc_array(attr, rows, device=self.mesh.devices[s])
+        return {s: [self._alloc_array(attr, rows, device=dev)
                     for attr in DEVICE_ARRAYS]
-                for s in self.mesh.local_positions()}
+                for s, dev in self.shard_devices.items()}
 
     def _alloc_device(self, cap: int) -> None:
         if self.mesh is not None:
@@ -686,8 +693,7 @@ class CorpusIndex:
         from ..ops.fused_scan import BLOCK_ROWS
 
         unit = self.n_shards * (BLOCK_ROWS if any(
-            self.mesh.devices[s].type == "cuda"
-            for s in self.mesh.local_positions()) else 1)
+            dev.type == "cuda" for dev in self.shard_devices.values()) else 1)
         return -(-cap // unit) * unit
 
     def _emit(self, op: str, statics: Optional[Dict] = None,
@@ -700,26 +706,28 @@ class CorpusIndex:
         """Replace the shards with a layout of ``cap`` rows whose row ``j``
         holds the current row ``src[j]`` (``src`` ascending): growth keeps
         every row (``src`` = 0..count-1), compaction keeps the live ones.
-        Each (old shard, new shard) pair moves one block; in a gang a block
-        whose shards live in two processes goes from one to the other
+        Each (old shard, new shard) pair moves one block; in a gang every
+        process holding the new shard takes the block, from its own old
+        shard when it holds that too, else from the old shard's owner
         (every process walks the same pairs in the same order)."""
         from ..parallel import mesh as mesh_mod
 
         old, old_rows = self._shards, self.shard_rows
         new_rows = cap // self.n_shards
         new = self._alloc_shards(cap)
-        rank, owner = self.mesh.rank, self.mesh.processes
+        mesh, rank = self.mesh, self.mesh.rank
         src = np.asarray(src, dtype=np.int64)
         for t in range(self.n_shards):
             t0, t1 = t * new_rows, min((t + 1) * new_rows, src.shape[0])
+            takers = mesh.shard_holders(t)
             for s in range(self.n_shards):
                 a = max(t0, int(np.searchsorted(src, s * old_rows)))
                 b = min(t1, int(np.searchsorted(src, (s + 1) * old_rows)))
                 if a >= b:
                     continue
-                if rank not in (owner[s], owner[t]):
-                    continue
-                if rank == owner[s]:
+                owner = mesh.shard_holders(s)[0]
+                remote = [r for r in takers if s not in mesh.held_shards(r)]
+                if s in old:
                     local = src[a:b] - s * old_rows
                     if local[-1] - local[0] == b - a - 1:
                         block = [buf[int(local[0]):int(local[-1]) + 1]
@@ -727,14 +735,18 @@ class CorpusIndex:
                     else:
                         idx = torch.from_numpy(local).to(old[s][0].device)
                         block = [buf.index_select(0, idx) for buf in old[s]]
-                    if owner[t] != rank:
-                        for piece in block:
-                            mesh_mod.send_to(piece, owner[t])
+                    if rank == owner:
+                        for r in remote:
+                            for piece in block:
+                                mesh_mod.send_to(piece, r)
+                    if t not in new:
                         continue
-                else:
+                elif t in new:
                     block = [mesh_mod.recv_from(
-                        *self._array_spec(attr, b - a), self.mesh.devices[t],
-                        owner[s]) for attr in DEVICE_ARRAYS]
+                        *self._array_spec(attr, b - a), self.shard_devices[t],
+                        owner) for attr in DEVICE_ARRAYS]
+                else:
+                    continue
                 for buf, piece in zip(new[t], block):
                     buf[a - t0:b - t0].copy_(piece)
         self._shards = new
@@ -742,28 +754,29 @@ class CorpusIndex:
 
     def _gather_rows(self, attr: str, n: int) -> Optional[torch.Tensor]:
         """The first ``n`` rows of one array, whole, on this process's
-        device; in a gang on the leader only (the others send their shards'
-        rows to it and get None)."""
+        device; in a gang on the leader only (each shard's owner sends its
+        rows to it unless the leader holds the shard, and the others get
+        None)."""
         from ..parallel import mesh as mesh_mod
 
         if self.mesh is None:
             return getattr(self, attr)[:n]
         i = DEVICE_ARRAYS.index(attr)
-        rank, owner, rows = self.mesh.rank, self.mesh.processes, self.shard_rows
+        rank, rows = self.mesh.rank, self.shard_rows
         parts = []
         for s in range(self.n_shards):
             m = min(rows, n - s * rows)
             if m <= 0:
                 break
-            if rank == owner[s]:
-                piece = self._shards[s][i][:m]
-                if rank == 0:
-                    parts.append(piece.to(self.device))
-                else:
-                    mesh_mod.send_to(piece, 0)
+            if s in self._shards and rank == 0:
+                parts.append(self._shards[s][i][:m].to(self.device))
             elif rank == 0:
                 parts.append(mesh_mod.recv_from(
-                    *self._array_spec(attr, m), self.device, owner[s]))
+                    *self._array_spec(attr, m), self.device,
+                    self.mesh.shard_holders(s)[0]))
+            elif rank == self.mesh.shard_holders(s)[0] and \
+                    0 not in self.mesh.shard_holders(s):
+                mesh_mod.send_to(self._shards[s][i][:m], 0)
         if rank != 0:
             return None
         if not parts:
@@ -1958,10 +1971,11 @@ class DeviceIndexManager:
     """Both corpora on one device (or row-sharded over a mesh), plus the
     call-registry capacity that sizes the filter bitmaps.
 
-    ``mesh`` (default: ``MESH_SHAPE``, over every visible card, the CPU
-    repeated when the index lives on the CPU, or in a gang this process's
-    device once per shard it holds) shards both corpora's rows over its
-    ``data`` axis; ``INDEX_INITIAL_CAPACITY`` must divide by it."""
+    ``mesh`` (default: ``MESH_SHAPE``, any axes, over every visible card,
+    the CPU repeated when the index lives on the CPU, or in a gang this
+    process's device once per position it holds) shards both corpora's
+    rows over its ``data`` axis and replicates them over the others;
+    ``INDEX_INITIAL_CAPACITY`` must divide by the ``data`` size."""
 
     def __init__(self, device: DeviceLike, mesh: Optional[Mesh] = None) -> None:
         self.device = resolve_device(device)

@@ -3,8 +3,9 @@
 Counterpart of ``cadence_rag_tpu/models/embedder.py``: the config, the hash
 tokenizer, the seeded initial weights (``models/prng.py`` reproduces
 ``jax.random``), the forward pass, the contrastive training step (InfoNCE,
-AdamW), the npz checkpoints and the ``EMBEDDINGS_PROVIDER=neural``
-provider. The vector contract is the JAX
+AdamW), the npz checkpoints, the ``EMBEDDINGS_PROVIDER=neural`` provider,
+and the model dp+tp over a mesh (``param_shardings``, ``ShardedEmbedder``,
+``sharded_train_step``: JAX's ``sharded=True``). The vector contract is the JAX
 package's: a causal transformer, last-token pooling, the hidden projected to
 ``embed_dim`` and mixed with a frozen hash-bag head, L2 normalised.
 
@@ -51,6 +52,7 @@ from torch import nn
 
 from ..device import DeviceLike, models_device, resolve_device
 from ..ops.hashing import fnv1a64
+from ..parallel import tensor as tp
 from . import prng
 
 # --------------------------------------------------------------- config ----
@@ -209,8 +211,16 @@ def load_flat(module: nn.Module, flat: Mapping[str, Any]) -> None:
 
 # ---------------------------------------------------------------- model ----
 
-class LayerNorm(nn.Module):
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+               ) -> torch.Tensor:
     """Biased variance, eps 1e-5, f32 (the JAX package's ``_layer_norm``)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * scale + bias
+
+
+class LayerNorm(nn.Module):
+    """``layer_norm`` with its scale and bias."""
 
     def __init__(self, dim: int, device: torch.device):
         super().__init__()
@@ -218,9 +228,37 @@ class LayerNorm(nn.Module):
         self.bias = _frozen(torch.zeros(dim), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + 1e-5) * self.scale + self.bias
+        return layer_norm(x, self.scale, self.bias)
+
+
+def attention(h: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
+              n_heads: int, mask: torch.Tensor, plain: bool) -> torch.Tensor:
+    """Causal attention of the layer-normed ``h`` over ``n_heads`` heads,
+    ``wqkv`` being ``[q | k | v]`` of those heads' columns, through the
+    output product -> (B, L, d_model) f32, the residual's addend (a partial
+    to sum over the model axis when the heads are one position's)."""
+    batch, seq, _ = h.shape
+    width = wqkv.shape[1] // 3
+    head_dim = width // n_heads
+    qkv = mm_f32(h, wqkv, plain)
+    q, k, v = (t.reshape(batch, seq, n_heads, head_dim).transpose(1, 2)
+               for t in qkv.split(width, dim=-1))
+    logits = bmm_f32(q, k.transpose(-1, -2), plain) / math.sqrt(head_dim)
+    causal = torch.ones(seq, seq, dtype=torch.bool, device=h.device).tril()
+    attn_mask = causal[None, None] & mask[:, None, None, :]
+    logits = torch.where(attn_mask, logits, -1e9)
+    weights = torch.softmax(logits, dim=-1)
+    ctx = bmm_f32(weights, v, plain)
+    ctx = ctx.transpose(1, 2).reshape(batch, seq, width)
+    return mm_f32(ctx, wo, plain)
+
+
+def mlp(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+        plain: bool) -> torch.Tensor:
+    """The GELU MLP of the layer-normed ``h`` over ``w_in``'s columns ->
+    (B, L, d_model) f32 (a partial when the columns are one position's)."""
+    ff = F.gelu(mm_f32(h, w_in, plain), approximate="tanh")
+    return mm_f32(ff, w_out, plain)
 
 
 class Block(nn.Module):
@@ -240,22 +278,9 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 plain: bool) -> torch.Tensor:
-        batch, seq, d_model = x.shape
-        head_dim = d_model // self.n_heads
-        qkv = mm_f32(self.ln1(x), self.wqkv, plain)
-        q, k, v = (t.reshape(batch, seq, self.n_heads, head_dim).transpose(1, 2)
-                   for t in qkv.split(d_model, dim=-1))
-        logits = bmm_f32(q, k.transpose(-1, -2), plain) / math.sqrt(head_dim)
-        causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
-        attn_mask = causal[None, None] & mask[:, None, None, :]
-        logits = torch.where(attn_mask, logits, -1e9)
-        weights = torch.softmax(logits, dim=-1)
-        ctx = bmm_f32(weights, v, plain)
-        ctx = ctx.transpose(1, 2).reshape(batch, seq, d_model)
-        x = x + mm_f32(ctx, self.wo, plain)
-        ff = mm_f32(self.ln2(x), self.w_in, plain)
-        ff = F.gelu(ff, approximate="tanh")
-        return x + mm_f32(ff, self.w_out, plain)
+        x = x + attention(self.ln1(x), self.wqkv, self.wo, self.n_heads, mask,
+                          plain)
+        return x + mlp(self.ln2(x), self.w_in, self.w_out, plain)
 
 
 class Encoder(nn.Module):
@@ -311,26 +336,36 @@ class Embedder(Encoder):
         token_ids = token_ids.to(self.device, torch.int64)
         plain = use_plain(token_ids, plain)
         x, mask = self.hidden(token_ids, plain)
-        # last-token pooling: the final non-pad position of each row
-        lengths = torch.clamp(mask.sum(dim=1) - 1, min=0)
-        pooled = x[torch.arange(x.shape[0], device=x.device), lengths]
+        pooled = last_token(x, mask)
         out = mm_f32(pooled, self.out_proj, plain)
         if self.cfg.use_bag:
-            bag_emb, mix = self.bag_emb, self.mix
-            if self.cfg.freeze_bag:
-                # the lexical prior stays fixed: no gradient (JAX's
-                # stop_gradient); AdamW still decays both
-                bag_emb, mix = bag_emb.detach(), mix.detach()
-            counts = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
-            bag = (mask[..., None].float() * bag_emb[token_ids]).sum(dim=1)
-            bag = _unit(bag / counts)
-            out = mix[0] * bag + mix[1] * _unit(out)
+            return mix_bag(out, self.bag_emb[token_ids], mask, self.mix, self.cfg)
         return _unit(out)
 
     @torch.inference_mode()
     def forward(self, token_ids: torch.Tensor,
                 plain: Optional[bool] = None) -> torch.Tensor:
         return self.vectors(token_ids, plain)
+
+
+def last_token(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Last-token pooling: each row's final non-pad position."""
+    lengths = torch.clamp(mask.sum(dim=1) - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), lengths]
+
+
+def mix_bag(out: torch.Tensor, bag_rows: torch.Tensor, mask: torch.Tensor,
+            mix: torch.Tensor, cfg: EmbedderConfig) -> torch.Tensor:
+    """The bag head: the mean of the tokens' bag rows (``bag_rows`` (B, L,
+    embed_dim)), unit, mixed with the unit transformer output, unit."""
+    if cfg.freeze_bag:
+        # the lexical prior stays fixed: no gradient (JAX's stop_gradient);
+        # AdamW still decays both
+        bag_rows, mix = bag_rows.detach(), mix.detach()
+    counts = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+    bag = (mask[..., None].float() * bag_rows).sum(dim=1)
+    bag = _unit(bag / counts)
+    return _unit(mix[0] * bag + mix[1] * _unit(out))
 
 
 def encode(model: Embedder, token_ids, plain: Optional[bool] = None
@@ -415,7 +450,11 @@ def info_nce_loss(model: Embedder, anchors, positives,
                   plain: Optional[bool] = None) -> torch.Tensor:
     """InfoNCE with in-batch negatives; ``negatives`` (B, L) adds one
     explicit hard negative per anchor as a second logit block. The three
-    token blocks go through one forward pass (the rows are independent)."""
+    token blocks go through one forward pass (the rows are independent).
+    A ``ShardedEmbedder`` takes the dp+tp loss (JAX's ``sharded=True``)."""
+    if isinstance(model, ShardedEmbedder):
+        return _sharded_info_nce(model, anchors, positives, temperature,
+                                 negatives, plain)
     blocks = [tokens_on(model, anchors), tokens_on(model, positives)]
     if negatives is not None:
         blocks.append(tokens_on(model, negatives))
@@ -534,11 +573,209 @@ def train_step(model: Embedder, opt_state: Dict[str, Any], anchors, positives,
                *, negatives=None, lr: float = 1e-4,
                plain: Optional[bool] = None):
     """One InfoNCE step: the loss, its gradient for every leaf and an AdamW
-    update, in place. -> (model, opt_state, loss (a 0-dim tensor))"""
+    update, in place. -> (model, opt_state, loss (a 0-dim tensor)). A
+    ``ShardedEmbedder`` (``shard_params(model, mesh)``) takes one dp+tp
+    step (``sharded_train_step``), JAX's ``train_step(..., sharded=True)``."""
+    if isinstance(model, ShardedEmbedder):
+        return sharded_train_step(model, opt_state, anchors, positives,
+                                  negatives=negatives, lr=lr, plain=plain)
     trainable(model)
     loss = info_nce_loss(model, anchors, positives, negatives=negatives,
                          plain=plain)
     apply_gradients(model, opt_state, loss, lr)
+    return model, opt_state, loss.detach()
+
+
+# ---------------------------------------------------- tensor parallelism ----
+
+def param_shardings(cfg: EmbedderConfig, mesh) -> Dict[str, tp.Layout]:
+    """JAX's Megatron layout over the ``model`` axis (``embedder.py``'s
+    ``param_shardings``), by module name: ``w_in`` and ``out_proj``
+    column-parallel, ``wo`` and ``w_out`` row-parallel, ``tok_emb`` and
+    ``bag_emb`` split by vocab (a masked lookup, the partials summed),
+    ``pos_emb``, the layer norms and ``mix`` replicated; the ``data`` axis
+    replicates every weight.
+
+    The fused ``wqkv`` (d, 3d) is JAX's ``P(None, "model")``, a contiguous
+    cut of the ``[q | k | v]`` columns, which does not fall along heads:
+    model index ``m`` of ``n`` would hold columns ``[m*3d/n, (m+1)*3d/n)``.
+    The port lays it out by heads instead: index ``m`` holds its heads'
+    slice of each of q, k and v, ``[q_m | k_m | v_m]``, with ``q_m`` the
+    columns ``[m*d/n, (m+1)*d/n)`` (heads ``m*H/n ..``) and ``k_m``, ``v_m``
+    the same columns of their thirds, so its attention is local.
+    ``gather_params`` puts the thirds back into JAX's (d, 3d) matrix."""
+    n = mesh.axis_size("model")
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} heads do not split over a model axis of {n}")
+    d, f = cfg.d_model, cfg.d_ff
+    out = {
+        "tok_emb": tp.split(cfg.vocab_buckets, 0, n),
+        "pos_emb": tp.Layout(),
+        "final_ln.scale": tp.Layout(), "final_ln.bias": tp.Layout(),
+        "out_proj": tp.split(cfg.embed_dim, 1, n),
+    }
+    for i in range(cfg.n_layers):
+        out.update({
+            f"blocks.{i}.ln1.scale": tp.Layout(), f"blocks.{i}.ln1.bias": tp.Layout(),
+            f"blocks.{i}.wqkv": tp.split(3 * d, 1, n, pieces=3),
+            f"blocks.{i}.wo": tp.split(d, 0, n),
+            f"blocks.{i}.ln2.scale": tp.Layout(), f"blocks.{i}.ln2.bias": tp.Layout(),
+            f"blocks.{i}.w_in": tp.split(f, 1, n),
+            f"blocks.{i}.w_out": tp.split(f, 0, n),
+        })
+    if cfg.use_bag:
+        out["bag_emb"] = tp.split(cfg.vocab_buckets, 0, n)
+        out["mix"] = tp.Layout()
+    return out
+
+
+class ShardedEmbedder:
+    """The embedder dp+tp over ``mesh``: each position holds its shards of
+    the weights (``param_shardings``) and its rows of the batch, split over
+    ``data`` (JAX's ``with_sharding_constraint(x, P("data", None, None))``
+    shards the batch, not the sequence). A layer runs the position's heads
+    and ``w_in`` columns; the row-parallel products are f32 partials summed
+    over the ``model`` group; ``out_proj``'s column slices are gathered over
+    it. The forward is differentiable: one autograd graph spans every
+    position (``parallel/tensor.py``)."""
+
+    def __init__(self, cfg: EmbedderConfig, mesh, params: tp.ShardedParams):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.params = params
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+    def groups(self) -> List[List[int]]:
+        """One model group per data index: its positions, in model order."""
+        return [self.mesh.model_group(self.mesh.shard_positions(d)[0])
+                for d in range(self.mesh.axis_size("data"))]
+
+    def _lookup(self, name: str, group, ids) -> Dict[int, torch.Tensor]:
+        first = self.params.layouts[name].ranges
+        return tp.all_reduce({
+            pos: tp.vocab_rows(self.params.at(pos)[name],
+                               first[self.mesh.axis_index(pos, "model")][0][0], ids[pos])
+            for pos in group}, self.mesh)
+
+    def group_vectors(self, group: List[int], token_ids: torch.Tensor,
+                      plain: bool) -> torch.Tensor:
+        """One model group's rows of the batch -> (b, embed_dim) unit
+        vectors on the group's first device."""
+        cfg, mesh = self.cfg, self.mesh
+        w = {pos: self.params.at(pos) for pos in group}
+        heads = cfg.n_heads // mesh.axis_size("model")
+        ids = tp.replicate(token_ids, mesh, group)
+        mask = tp.replicate(token_ids != 0, mesh, group)
+        x = tp.each(self._lookup("tok_emb", group, ids), lambda pos, t: (
+            t + w[pos]["pos_emb"][None, : token_ids.shape[1]]))
+        for i in range(cfg.n_layers):
+            b = f"blocks.{i}."
+            h = tp.each(x, lambda pos, t: layer_norm(
+                t, w[pos][b + "ln1.scale"], w[pos][b + "ln1.bias"]))
+            attn = tp.all_reduce({pos: attention(
+                h[pos], w[pos][b + "wqkv"], w[pos][b + "wo"], heads, mask[pos], plain)
+                for pos in group}, mesh)
+            x = tp.each(x, lambda pos, t: t + attn[pos])
+            h = tp.each(x, lambda pos, t: layer_norm(
+                t, w[pos][b + "ln2.scale"], w[pos][b + "ln2.bias"]))
+            ff = tp.all_reduce({pos: mlp(h[pos], w[pos][b + "w_in"], w[pos][b + "w_out"],
+                                         plain) for pos in group}, mesh)
+            x = tp.each(x, lambda pos, t: t + ff[pos])
+        pooled = tp.each(x, lambda pos, t: last_token(layer_norm(
+            t, w[pos]["final_ln.scale"], w[pos]["final_ln.bias"]), mask[pos]))
+        first = group[0]
+        out = tp.all_gather({pos: mm_f32(pooled[pos], w[pos]["out_proj"], plain)
+                             for pos in group}, mesh, -1)[first]
+        if cfg.use_bag:
+            rows = self._lookup("bag_emb", group, ids)[first]
+            return mix_bag(out, rows, mask[first], w[first]["mix"], cfg)
+        return _unit(out)
+
+    def split_batch(self, token_ids) -> List[Tuple[List[int], torch.Tensor]]:
+        """[(model group, its rows of the batch on its first device)], one
+        per data index; the batch must divide over ``data``."""
+        if not isinstance(token_ids, torch.Tensor):
+            token_ids = torch.from_numpy(np.asarray(token_ids))
+        groups = self.groups()
+        if token_ids.shape[0] % len(groups):
+            raise ValueError(f"batch {token_ids.shape[0]} does not split over "
+                             f"the data axis ({len(groups)})")
+        rows = token_ids.shape[0] // len(groups)
+        return [(g, token_ids[d * rows:(d + 1) * rows].to(
+            self.mesh.devices[g[0]], torch.int64)) for d, g in enumerate(groups)]
+
+    def vectors(self, token_ids, plain: Optional[bool] = None) -> torch.Tensor:
+        """(B, L) ids -> (B, embed_dim) unit vectors on the first position's
+        device, differentiable."""
+        parts = {g[0]: self.group_vectors(g, ids, use_plain(ids, plain))
+                 for g, ids in self.split_batch(token_ids)}
+        return tp.all_gather(parts, self.mesh, 0)[min(parts)]
+
+    @torch.inference_mode()
+    def __call__(self, token_ids, plain: Optional[bool] = None) -> torch.Tensor:
+        return self.vectors(token_ids, plain)
+
+
+def shard_params(model: Embedder, mesh) -> ShardedEmbedder:
+    """The embedder's weights (seeded, loaded, or carried from JAX with
+    ``from_jax_params``) laid over ``mesh``."""
+    params = tp.ShardedParams.shard(mesh, param_shardings(model.cfg, mesh),
+                                    dict(model.named_parameters()))
+    return ShardedEmbedder(model.cfg, mesh, params)
+
+
+def gather_params(sharded: ShardedEmbedder, device: Optional[DeviceLike] = None
+                  ) -> Embedder:
+    """The whole embedder from its shards (JAX's fused ``wqkv`` included),
+    on ``device`` (default: the first position's)."""
+    device = sharded.device if device is None else resolve_device(device)
+    model = Embedder(sharded.cfg, device)
+    load_flat(model, sharded.params.gather(device=device))
+    return model
+
+
+def _sharded_info_nce(model: ShardedEmbedder, anchors, positives, temperature,
+                      negatives, plain) -> torch.Tensor:
+    """``info_nce_loss`` dp+tp: each data group's anchors, positives (and
+    negatives) through one forward, then the vectors gathered over ``data``
+    before the logits: the in-batch negatives span the GLOBAL batch, as
+    JAX's ``za @ zp.T`` over data-sharded vectors does."""
+    blocks = [anchors, positives] + ([negatives] if negatives is not None else [])
+    split = [model.split_batch(b) for b in blocks]
+    zs: List[Dict[int, torch.Tensor]] = [{} for _ in blocks]
+    for d, (group, _ids) in enumerate(split[0]):
+        ids = torch.cat([s[d][1] for s in split])
+        z = model.group_vectors(group, ids, use_plain(ids, plain))
+        for j, part in enumerate(z.split(split[0][d][1].shape[0])):
+            zs[j][group[0]] = part
+    za, zp, *zn = (tp.all_gather(z, model.mesh, 0)[min(z)] for z in zs)
+    logits = za @ zp.T
+    if zn:
+        logits = torch.cat([logits, za @ zn[0].T], dim=1)
+    logits = logits / temperature
+    return torch.mean(-torch.log_softmax(logits, dim=-1).diagonal())
+
+
+def sharded_train_step(model: ShardedEmbedder, opt_state: Dict[str, Any],
+                       anchors, positives, *, negatives=None, lr: float = 1e-4,
+                       plain: Optional[bool] = None):
+    """One dp+tp InfoNCE step: the loss over the global batch, its gradient
+    for every shard (a leaf shared by positions on one device sums their
+    gradients through autograd; copies on distinct devices are summed by
+    ``ShardedParams.sync_grads``), then ``adamw_update`` on each shard as it
+    lies (``opt_state``: ``adamw_init(model.params.leaves())``). -> (model,
+    opt_state, loss)"""
+    params = model.params.requires_grad_(True)
+    loss = _sharded_info_nce(model, anchors, positives, 0.05, negatives, plain)
+    keys = list(params.tensors)
+    grads = torch.autograd.grad(loss, [params.tensors[k] for k in keys],
+                                allow_unused=True)
+    grads = params.sync_grads(dict(zip(keys, grads)))
+    adamw_update(params.leaves(), {f"{n}@{m}@{d}": g for (n, m, d), g in grads.items()},
+                 opt_state, lr=lr)
     return model, opt_state, loss.detach()
 
 

@@ -83,6 +83,34 @@ def _counter(start: int, count: int, device) -> Tuple[torch.Tensor, torch.Tensor
     return flat >> 32, flat & MASK
 
 
+Block = Tuple[slice, ...]
+
+
+def _block_shape(shape: Tuple[int, ...], block: Block) -> Tuple[int, ...]:
+    return tuple(len(range(*sl.indices(n))) for sl, n in zip(block, shape))
+
+
+def block_indices(shape: Shape, block: Block, start: int, count: int,
+                  device) -> torch.Tensor:
+    """The flat indices, in the whole array of ``shape``, of the elements
+    ``start .. start+count`` (row-major) of its sub-array ``block`` (one
+    slice per dimension, step 1) -> int64 (count,)."""
+    shape = _shape(shape)
+    bounds = [sl.indices(n) for sl, n in zip(block, shape)]
+    if len(bounds) != len(shape) or any(step != 1 for _a, _b, step in bounds):
+        raise ValueError(f"a block is one step-1 slice per dimension of {shape}")
+    sub = _block_shape(shape, block)
+    local = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    flat = torch.zeros_like(local)
+    stride = 1
+    for dim in reversed(range(len(shape))):
+        coord = local % sub[dim] if sub[dim] else local
+        local = local // max(sub[dim], 1)
+        flat += (coord + bounds[dim][0]) * stride
+        stride *= shape[dim]
+    return flat
+
+
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: the fold-like split over the shape's
     iota -> int64 (*shape, 2) keys."""
@@ -96,6 +124,14 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
 def _bits_flat(k1: int, k2: int, start: int, count: int, device) -> torch.Tensor:
     hi, lo = _counter(start, count, device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
+    return b1.bitwise_xor_(b2)
+
+
+def bits_at(k1: int, k2: int, flat: torch.Tensor) -> torch.Tensor:
+    """The partitionable draw's 32 bits at the flat indices ``flat`` (any
+    set, on any device): element ``i`` of a draw is the hash of the 64-bit
+    counter ``i`` alone, so a slice of it needs no other element."""
+    b1, b2 = threefry2x32(k1, k2, flat >> 32, flat & MASK)
     return b1.bitwise_xor_(b2)
 
 
@@ -194,13 +230,20 @@ def bf16_normal_table(device="cpu") -> torch.Tensor:
 
 def normal(key: torch.Tensor, shape: Shape, dtype=torch.float32,
            device="cpu", *, out: Optional[torch.Tensor] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None,
+           index: Optional[Block] = None) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)`` for f32 and bf16, computed in
     chunks of ``CHUNK`` flat elements on ``device`` (or into ``out``, whose
     device and dtype then rule). With ``scale``, each value is multiplied
     by ``scale`` in ``dtype`` (``normal(...) * scale`` in JAX, the scalar
-    taking the array's dtype)."""
+    taking the array's dtype). With ``index`` (one step-1 slice per
+    dimension) only that block of the draw is made, of the block's shape:
+    ``normal(key, shape)[index]`` without the whole array anywhere, as
+    JAX's ``init_params(shardings=)`` makes each device's shard."""
     shape = _shape(shape)
+    whole = shape
+    if index is not None:
+        shape = _block_shape(whole, tuple(index))
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=device)
     elif tuple(out.shape) != shape:
@@ -213,7 +256,11 @@ def normal(key: torch.Tensor, shape: Shape, dtype=torch.float32,
                if scale is not None else None)
     for start in range(0, flat.numel(), CHUNK):
         count = min(CHUNK, flat.numel() - start)
-        raw = _bits_flat(k1, k2, start, count, out.device)
+        if index is None:
+            raw = _bits_flat(k1, k2, start, count, out.device)
+        else:
+            raw = bits_at(k1, k2, block_indices(whole, tuple(index), start,
+                                                count, out.device))
         if table is not None:
             vals = table[(raw & 0xFF) >> 1]
         else:

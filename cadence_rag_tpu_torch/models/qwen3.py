@@ -1,10 +1,13 @@
 """The Qwen3-Embedding-4B-shaped encoder, in torch.
 
-Counterpart of ``cadence_rag_tpu/models/qwen3.py``, unsharded: the config
-and presets, the synthetic weights (made on the device through
+Counterpart of ``cadence_rag_tpu/models/qwen3.py``: the config and
+presets, the synthetic weights (made on the device through
 ``models/prng.py``, the JAX package's numbers), the npz checkpoints, the
-tokenizers (hash and byte-level BPE), ``encode`` and the
-``EMBEDDINGS_PROVIDER=qwen3`` provider.
+tokenizers (hash and byte-level BPE), ``encode``, the
+``EMBEDDINGS_PROVIDER=qwen3`` provider, and the forward tensor-parallel
+over a mesh's ``model`` axis (``param_shardings``, ``ShardedQwen3``,
+weights born sharded by ``init_params(..., mesh=)``), JAX's
+``encode(..., sharded=True)``.
 
 The forward pass is the JAX package's, op for op: GQA with 32 query and 8
 key/value heads of 128, per-head RMSNorm of q and k before neox half-split
@@ -36,6 +39,7 @@ from torch import nn
 from ..device import DeviceLike, models_device, resolve_device
 from ..logging_utils import get_logger
 from ..ops.hashing import fnv1a64
+from ..parallel import tensor as tp
 from . import prng
 from .embedder import bmm_f32, load_flat, mm_f32, use_plain
 
@@ -154,6 +158,60 @@ def _apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def _attention(h, w, i, cfg: Qwen3Config, n_heads: int, n_kv: int, sin, cos,
+               attn_mask, plain) -> torch.Tensor:
+    """Layer ``i``'s attention over ``n_heads`` query and ``n_kv`` key/value
+    heads (the weights' own: all of them, or one position's under tensor
+    parallelism), through its output product -> (B, S, d_model) f32, the
+    residual's addend (a partial to sum over the model axis when sharded)."""
+    B, S, _ = h.shape
+    groups = n_heads // n_kv
+    hd = cfg.head_dim
+    q = mm_f32(h, w["wq"][i], plain).reshape(B, S, n_heads, hd)
+    k = mm_f32(h, w["wk"][i], plain).reshape(B, S, n_kv, hd)
+    v = mm_f32(h, w["wv"][i], plain).reshape(B, S, n_kv, hd)
+    v = v.to(torch.bfloat16).transpose(1, 2)                # (B, Hk, S, hd)
+    # Qwen3 QK-norm: per-head RMSNorm of q and k before RoPE
+    q = _rms_norm(q, w["q_norm"][i], cfg.rms_eps)
+    k = _rms_norm(k, w["k_norm"][i], cfg.rms_eps)
+    q = _apply_rope(q.transpose(1, 2), sin, cos).to(torch.bfloat16)
+    k = _apply_rope(k.transpose(1, 2), sin, cos).to(torch.bfloat16)
+    # GQA: each kv head against its group of query heads, q as
+    # (B, Hk, G*S, hd), so k and v are never repeated
+    qg = q.reshape(B, n_kv, groups * S, hd)
+    logits = bmm_f32(qg, k.transpose(-1, -2), plain).reshape(
+        B, n_kv, groups, S, S) / math.sqrt(hd)
+    logits = torch.where(attn_mask[:, :, None], logits, -1e9)
+    weights = torch.softmax(logits, dim=-1).to(torch.bfloat16)
+    del logits
+    ctx = bmm_f32(weights.reshape(B, n_kv, groups * S, S), v,
+                  plain).to(torch.bfloat16)
+    ctx = ctx.reshape(B, n_heads, S, hd).transpose(1, 2).reshape(
+        B, S, n_heads * hd)
+    return mm_f32(ctx, w["wo"][i], plain)
+
+
+def _mlp(h, w, i, plain) -> torch.Tensor:
+    """Layer ``i``'s SwiGLU over the weights' own columns of d_ff -> (B, S,
+    d_model) f32, the residual's addend (a partial when sharded)."""
+    gate = mm_f32(h, w["w_gate"][i], plain)
+    up = mm_f32(h, w["w_up"][i], plain)
+    ff = (F.silu(gate) * up).to(torch.bfloat16)
+    del gate, up
+    return mm_f32(ff, w["w_down"][i], plain)
+
+
+def _pool(x, final_norm, pad_mask, cfg: Qwen3Config) -> torch.Tensor:
+    """The final norm, the last non-pad position pooled, the hidden
+    truncated and L2-normalised -> (B, embed_dim) f32."""
+    x = _rms_norm(x, final_norm, cfg.rms_eps)
+    last = torch.clamp(pad_mask.sum(dim=1) - 1, min=0)
+    pooled = x[torch.arange(x.shape[0], device=x.device), last].float()
+    out = pooled[:, : cfg.embed_dim]                        # 2560 -> 1024
+    return out / torch.clamp(
+        torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-6)
+
+
 class Qwen3Encoder(nn.Module):
     """The stacked weights of ``_param_specs`` (bf16 ``w``, f32 norms) and
     the forward pass: (B, S) int ids, 0 = pad -> (B, embed_dim) unit
@@ -176,40 +234,13 @@ class Qwen3Encoder(nn.Module):
     def params(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.named_parameters()}
 
-    def _layer(self, x, i, sin, cos, attn_mask, plain):
+    def _layer(self, x, w, i, sin, cos, attn_mask, plain):
         cfg = self.cfg
-        B, S, _ = x.shape
-        groups = cfg.n_heads // cfg.n_kv_heads
-        hd = cfg.head_dim
-        h = _rms_norm(x, self.ln1[i], cfg.rms_eps)
-        q = mm_f32(h, self.wq[i], plain).reshape(B, S, cfg.n_heads, hd)
-        k = mm_f32(h, self.wk[i], plain).reshape(B, S, cfg.n_kv_heads, hd)
-        v = mm_f32(h, self.wv[i], plain).reshape(B, S, cfg.n_kv_heads, hd)
-        v = v.to(torch.bfloat16).transpose(1, 2)                # (B, Hk, S, hd)
-        # Qwen3 QK-norm: per-head RMSNorm of q and k before RoPE
-        q = _rms_norm(q, self.q_norm[i], cfg.rms_eps)
-        k = _rms_norm(k, self.k_norm[i], cfg.rms_eps)
-        q = _apply_rope(q.transpose(1, 2), sin, cos).to(torch.bfloat16)
-        k = _apply_rope(k.transpose(1, 2), sin, cos).to(torch.bfloat16)
-        # GQA: each kv head against its group of query heads, q as
-        # (B, Hk, G*S, hd), so k and v are never repeated
-        qg = q.reshape(B, cfg.n_kv_heads, groups * S, hd)
-        logits = bmm_f32(qg, k.transpose(-1, -2), plain).reshape(
-            B, cfg.n_kv_heads, groups, S, S) / math.sqrt(hd)
-        logits = torch.where(attn_mask[:, :, None], logits, -1e9)
-        weights = torch.softmax(logits, dim=-1).to(torch.bfloat16)
-        del logits
-        ctx = bmm_f32(weights.reshape(B, cfg.n_kv_heads, groups * S, S), v,
-                      plain).to(torch.bfloat16)
-        ctx = ctx.reshape(B, cfg.n_heads, S, hd).transpose(1, 2).reshape(
-            B, S, cfg.q_dim)
-        x = x + mm_f32(ctx, self.wo[i], plain).to(torch.bfloat16)
-        h = _rms_norm(x, self.ln2[i], cfg.rms_eps)
-        gate = mm_f32(h, self.w_gate[i], plain)
-        up = mm_f32(h, self.w_up[i], plain)
-        ff = (F.silu(gate) * up).to(torch.bfloat16)
-        del gate, up
-        return x + mm_f32(ff, self.w_down[i], plain).to(torch.bfloat16)
+        h = _rms_norm(x, w["ln1"][i], cfg.rms_eps)
+        x = x + _attention(h, w, i, cfg, cfg.n_heads, cfg.n_kv_heads, sin, cos,
+                           attn_mask, plain).to(torch.bfloat16)
+        h = _rms_norm(x, w["ln2"][i], cfg.rms_eps)
+        return x + _mlp(h, w, i, plain).to(torch.bfloat16)
 
     @torch.inference_mode()
     def forward(self, token_ids: torch.Tensor,
@@ -223,14 +254,10 @@ class Qwen3Encoder(nn.Module):
         sin, cos = _rope_tables(S, cfg.head_dim, cfg.rope_theta, self.device)
         causal = torch.ones(S, S, dtype=torch.bool, device=self.device).tril()
         attn_mask = causal[None, None] & pad_mask[:, None, None, :]
+        w = self.params()
         for i in range(cfg.n_layers):
-            x = self._layer(x, i, sin, cos, attn_mask, plain)
-        x = _rms_norm(x, self.final_norm, cfg.rms_eps)
-        last = torch.clamp(pad_mask.sum(dim=1) - 1, min=0)
-        pooled = x[torch.arange(B, device=self.device), last].float()
-        out = pooled[:, : cfg.embed_dim]                        # 2560 -> 1024
-        return out / torch.clamp(
-            torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-6)
+            x = self._layer(x, w, i, sin, cos, attn_mask, plain)
+        return _pool(x, w["final_norm"], pad_mask, cfg)
 
 
 def encode(model: Qwen3Encoder, token_ids, plain: Optional[bool] = None
@@ -240,11 +267,14 @@ def encode(model: Qwen3Encoder, token_ids, plain: Optional[bool] = None
 
 
 def init_params(cfg: Qwen3Config, key: torch.Tensor,
-                device: DeviceLike) -> Qwen3Encoder:
+                device: DeviceLike, mesh=None):
     """Synthetic weights, made on ``device`` (8 GB at the 4b preset, never
     on the host): the JAX package's ``init_params(cfg, key)``, value for
     value — each ``w`` is ``normal(bf16) * 1/sqrt(fan_in)`` in bf16, each
-    norm scale ones."""
+    norm scale ones. With ``mesh`` they are born sharded on the mesh's
+    devices (``_init_sharded``) -> a ``ShardedQwen3``."""
+    if mesh is not None:
+        return _init_sharded(cfg, key, mesh)
     model = Qwen3Encoder(cfg, device)
     specs = _param_specs(cfg)
     keys = prng.split(key, len(specs))
@@ -323,6 +353,194 @@ def save_params(path: str, model: Qwen3Encoder) -> None:
         dtype=np.int64,
     )
     np.savez(path, **flat)
+
+
+# ---------------------------------------------------- tensor parallelism ----
+
+def _kv_layout(cfg: Qwen3Config, n: int) -> tp.Layout:
+    """The key/value columns each model index holds: the heads its query
+    columns use (JAX's contiguous cut of ``wq``). Where the model axis is
+    wider than the key/value heads, a head is replicated to every index
+    whose query heads use it (Megatron's rule when tp exceeds the kv
+    heads); JAX's own cut would give a position part of a head."""
+    hd, groups = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    q_cols = cfg.q_dim // n
+    ranges = []
+    for m in range(n):
+        first_q = (m * q_cols) // hd
+        last_q = -(-((m + 1) * q_cols) // hd) - 1
+        ranges.append(((first_q // groups * hd, (last_q // groups + 1) * hd),))
+    return tp.Layout(2, tuple(ranges))
+
+
+def param_shardings(cfg: Qwen3Config, mesh) -> Dict[str, tp.Layout]:
+    """JAX's Megatron layout over the stacked (L, ...) weights and the
+    ``model`` axis: ``tok_emb`` split by vocab; ``wq``, ``w_gate`` and
+    ``w_up`` column-parallel (their output columns cut in contiguous
+    pieces); ``wk`` and ``wv`` the key/value heads of each index's query
+    columns (``_kv_layout``); ``wo`` and ``w_down`` row-parallel (input
+    rows); the norms replicated. The ``data`` axis replicates every
+    weight."""
+    n = mesh.axis_size("model")
+    kv = _kv_layout(cfg, n)
+    return {
+        "tok_emb": tp.split(cfg.vocab_buckets, 0, n),
+        "ln1": tp.Layout(), "ln2": tp.Layout(),
+        "q_norm": tp.Layout(), "k_norm": tp.Layout(),
+        "wq": tp.split(cfg.q_dim, 2, n),
+        "wk": kv, "wv": kv,
+        "wo": tp.split(cfg.q_dim, 1, n),
+        "w_gate": tp.split(cfg.d_ff, 2, n),
+        "w_up": tp.split(cfg.d_ff, 2, n),
+        "w_down": tp.split(cfg.d_ff, 1, n),
+        "final_norm": tp.Layout(),
+    }
+
+
+class ShardedQwen3:
+    """The encoder tensor-parallel over ``mesh``: each position holds its
+    shards of the weights (``param_shardings``) and its rows of the batch
+    (the batch split over ``data``, as JAX's ``P("data", None, None)``
+    constrains the activations; there is no sequence parallelism). Each
+    layer runs the column-parallel products, QK-norm, RoPE and attention
+    over the position's own heads, then the row-parallel products as f32
+    partials summed over the ``model`` group before the cast to bf16, where
+    GSPMD sums JAX's ``preferred_element_type=f32`` partials. Positions on
+    one device share the replicated activations (``tp.each``)."""
+
+    def __init__(self, cfg: Qwen3Config, mesh, params: tp.ShardedParams):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.params = params
+
+    def heads(self) -> Tuple[int, int]:
+        """(query heads, key/value heads) of a position. The forward needs
+        whole query heads on each: a model axis wider than the query heads
+        (the tiny preset over ``model:8``) holds the weights, and raises
+        here."""
+        cfg, n = self.cfg, self.mesh.axis_size("model")
+        if cfg.n_heads % n:
+            raise ValueError(f"{cfg.n_heads} query heads do not split over a "
+                             f"model axis of {n}")
+        (kv,) = self.params.layouts["wk"].ranges[0]
+        q_heads, kv_heads = cfg.n_heads // n, (kv[1] - kv[0]) // cfg.head_dim
+        if q_heads % kv_heads:
+            raise ValueError(f"{q_heads} query heads a position do not group "
+                             f"over its {kv_heads} key/value heads")
+        return q_heads, kv_heads
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+    def groups(self) -> List[List[int]]:
+        """One model group per data index: its positions, in model order."""
+        return [self.mesh.model_group(self.mesh.shard_positions(d)[0])
+                for d in range(self.mesh.axis_size("data"))]
+
+    def _embed(self, group, token_ids):
+        ids = tp.replicate(token_ids, self.mesh, group)
+        vocab = self.params.layouts["tok_emb"]
+        parts = {pos: tp.vocab_rows(self.params.at(pos)["tok_emb"],
+                                  vocab.ranges[self.mesh.axis_index(pos, "model")][0][0],
+                                  ids[pos])
+                 for pos in group}
+        return tp.all_reduce(parts, self.mesh)
+
+    def _group_forward(self, group, token_ids, plain):
+        cfg, mesh = self.cfg, self.mesh
+        B, S = token_ids.shape
+        w = {pos: self.params.at(pos) for pos in group}
+        pad = tp.replicate(token_ids != 0, mesh, group)
+        tables = {}
+        for pos in group:
+            dev = mesh.devices[pos]
+            if dev not in tables:
+                sin, cos = _rope_tables(S, cfg.head_dim, cfg.rope_theta, dev)
+                causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+                tables[dev] = (sin, cos, causal[None, None] & pad[pos][:, None, None, :])
+        x = self._embed(group, token_ids)
+        q_heads, kv_heads = self.heads()
+        for i in range(cfg.n_layers):
+            h = tp.each(x, lambda pos, t: _rms_norm(t, w[pos]["ln1"][i], cfg.rms_eps))
+            parts = {pos: _attention(h[pos], w[pos], i, cfg, q_heads, kv_heads,
+                                     *tables[mesh.devices[pos]], plain)
+                     for pos in group}
+            attn = tp.all_reduce(parts, mesh)
+            del parts
+            x = tp.each(x, lambda pos, t: t + attn[pos].to(torch.bfloat16))
+            h = tp.each(x, lambda pos, t: _rms_norm(t, w[pos]["ln2"][i], cfg.rms_eps))
+            parts = {pos: _mlp(h[pos], w[pos], i, plain) for pos in group}
+            ff = tp.all_reduce(parts, mesh)
+            del parts, h
+            x = tp.each(x, lambda pos, t: t + ff[pos].to(torch.bfloat16))
+        first = group[0]
+        return _pool(x[first], w[first]["final_norm"], pad[first], cfg)
+
+    @torch.inference_mode()
+    def forward(self, token_ids: torch.Tensor, plain: Optional[bool] = None
+                ) -> torch.Tensor:
+        """(B, S) ids, B a multiple of the ``data`` size -> (B, embed_dim)
+        unit vectors on the first position's device."""
+        token_ids = torch.as_tensor(np.asarray(token_ids)).to(torch.int64)
+        groups = self.groups()
+        if token_ids.shape[0] % len(groups):
+            raise ValueError(f"batch {token_ids.shape[0]} does not split over "
+                             f"the data axis ({len(groups)})")
+        rows = token_ids.shape[0] // len(groups)
+        outs = {}
+        for d, group in enumerate(groups):
+            dev = self.mesh.devices[group[0]]
+            ids = token_ids[d * rows:(d + 1) * rows].to(dev)
+            outs[group[0]] = self._group_forward(group, ids, use_plain(ids, plain))
+        return tp.all_gather(outs, self.mesh, 0)[min(outs)]
+
+    __call__ = forward
+
+
+def _init_sharded(cfg: Qwen3Config, key: torch.Tensor, mesh) -> ShardedQwen3:
+    """``init_params(cfg, key)`` born sharded over ``mesh``: each position's
+    shard is drawn alone (``prng.normal(index=)``), so no device holds a
+    whole sharded weight: JAX's ``init_params(shardings=)``."""
+    layouts = param_shardings(cfg, mesh)
+    specs = {name: (shape, kind, k) for (name, shape, kind), k in zip(
+        _param_specs(cfg), prng.split(key, len(_param_specs(cfg))))}
+    shapes = {name: shape for name, (shape, _kind, _k) in specs.items()}
+
+    def make(name, m, dev):
+        shape, kind, k = specs[name]
+        blocks = layouts[name].block(shape, m)
+        if kind == "ones":
+            (block,) = blocks
+            return torch.ones(prng._block_shape(shape, block), dtype=torch.float32,
+                              device=dev)
+        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+        pieces = [prng.normal(k, shape, torch.bfloat16, dev,
+                              scale=float(1.0 / np.sqrt(fan_in)), index=block)
+                  for block in blocks]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces,
+                                                            dim=layouts[name].dim)
+
+    params = tp.ShardedParams(mesh, layouts, shapes).fill(make)
+    return ShardedQwen3(cfg, mesh, params)
+
+
+def shard_params(model: Qwen3Encoder, mesh) -> ShardedQwen3:
+    """The encoder's weights (seeded, loaded, or carried from JAX with
+    ``from_jax_params``) laid over ``mesh``."""
+    params = tp.ShardedParams.shard(mesh, param_shardings(model.cfg, mesh),
+                                    model.params())
+    return ShardedQwen3(model.cfg, mesh, params)
+
+
+def gather_params(sharded: ShardedQwen3, device: Optional[DeviceLike] = None
+                  ) -> Qwen3Encoder:
+    """The whole encoder from its shards, on ``device`` (default: the first
+    position's): ``shard_params``' inverse."""
+    device = sharded.device if device is None else resolve_device(device)
+    model = Qwen3Encoder(sharded.cfg, device)
+    load_flat(model, sharded.params.gather(device=device))
+    return model
 
 
 # ------------------------------------------------------------ tokenizer ----

@@ -2,13 +2,18 @@
 
 Counterpart of ``cadence_rag_tpu/parallel/mesh.py``. Mesh axes: ``data``
 shards the corpus (document rows of the index arrays), the axis that grows
-with corpus size; ``model`` would shard the in-process encoders' weights
-(Megatron tensor parallelism), which the port does not serve yet.
+with corpus size, and the batch of the models' forward and training step;
+``model`` shards the in-process encoders' weights (Megatron tensor
+parallelism, ``parallel/tensor.py``). The index's rows are replicated over
+``model``: a data shard is the group of positions that share a ``data``
+index (``shard_positions``), and one process computes each shard it holds
+once, on the device of its lowest position there (``local_shards``).
 
 A ``Mesh`` is a plain record: the named axes, one device per position
-(row-major over the axes) and the process that holds each position. A
-device may repeat: two shards can share one card (or the CPU), the way the
-JAX tests give one host eight virtual CPU devices.
+(row-major over the axes, in the spec's order, so ``model:2,data:2`` is
+JAX's mesh of that spec) and the process that holds each position. A
+device may repeat: two positions can share one card (or the CPU), the way
+the JAX tests give one host eight virtual CPU devices.
 
 The gang: when ``DIST_COORDINATOR`` names a coordinator, every process
 calls ``init_gang`` before it touches the index. It joins a ``gloo``
@@ -57,6 +62,70 @@ class Mesh:
     def local_positions(self) -> List[int]:
         """Positions this process holds, in order."""
         return [i for i, p in enumerate(self.processes) if p == self.rank]
+
+    # -- axis arithmetic ------------------------------------------------------
+    def axis_size(self, axis: str) -> int:
+        """The size of ``axis`` (1 when the mesh has no such axis)."""
+        return self.shape.get(axis, 1)
+
+    def _stride(self, axis: str) -> int:
+        names = [name for name, _size in self.axes]
+        return math.prod(size for _name, size in self.axes[names.index(axis) + 1:])
+
+    def axis_index(self, pos: int, axis: str) -> int:
+        """Position ``pos``'s index along ``axis`` (0 without the axis)."""
+        if axis not in self.shape:
+            return 0
+        return (pos // self._stride(axis)) % self.shape[axis]
+
+    def group(self, pos: int, axis: str) -> List[int]:
+        """The positions that differ from ``pos`` only along ``axis``, in
+        that axis's order: the group a collective over ``axis`` spans."""
+        if axis not in self.shape:
+            return [pos]
+        stride = self._stride(axis)
+        first = pos - self.axis_index(pos, axis) * stride
+        return [first + i * stride for i in range(self.shape[axis])]
+
+    def model_group(self, pos: int) -> List[int]:
+        """``pos``'s group along ``model``: the positions that hold the
+        other shards of its weights (one ``data`` index)."""
+        return self.group(pos, "model")
+
+    def data_group(self, pos: int) -> List[int]:
+        """``pos``'s group along ``data``: the positions that hold the same
+        weight shard and the other slices of the batch (and rows)."""
+        return self.group(pos, "data")
+
+    # -- the index's data shards ------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        """Row shards: the ``data`` size, whatever the other axes."""
+        return self.axis_size("data")
+
+    def shard_positions(self, shard: int) -> List[int]:
+        """The positions of data shard ``shard``: its replicas along every
+        other axis, ascending."""
+        return [pos for pos in range(self.size)
+                if self.axis_index(pos, "data") == shard]
+
+    def shard_holders(self, shard: int) -> List[int]:
+        """The processes holding a replica of ``shard``, ascending; the
+        first is its owner (the copy a gather and a save keep)."""
+        return sorted({self.processes[pos] for pos in self.shard_positions(shard)})
+
+    def held_shards(self, process: int) -> List[int]:
+        """The data shards ``process`` holds, ascending."""
+        return sorted({self.axis_index(pos, "data")
+                       for pos, p in enumerate(self.processes) if p == process})
+
+    def local_shards(self) -> Dict[int, torch.device]:
+        """{data shard: device} of the shards this process holds, each once,
+        on the device of its lowest position in this process."""
+        out: Dict[int, torch.device] = {}
+        for pos in self.local_positions():
+            out.setdefault(self.axis_index(pos, "data"), self.devices[pos])
+        return dict(sorted(out.items()))
 
 
 def parse_mesh_shape(spec: str) -> List[Tuple[str, int]]:

@@ -16,10 +16,17 @@ unsharded index's when each shard's rows are a multiple of K1's 1024-row
 block: its strided 8-row groups are then the unsharded groups. On CUDA a
 shard of another size raises instead of answering differently.
 
+Shards are the mesh's ``data`` positions; a ``model`` axis replicates
+them (each data shard's positions along ``model`` hold the same rows), and
+a process computes each data shard it holds once (``Mesh.local_shards``),
+so the answers are those of the same ``data:N`` mesh without the model
+axis, bit for bit.
+
 The gather: in one process, a concatenation on the first shard's device;
 across processes (the op-log gang, ``parallel/oplog.py``), one
 ``torch.distributed`` all-gather per dispatch of every lane's candidates
-packed into one int64 block (``mesh.all_gather``).
+packed into one int64 block (``mesh.all_gather``), of which one copy of
+each shard is kept: its owner's, the lowest process holding it.
 
 - ``sharded_dense_topk`` / ``sharded_multi_lane``: the JAX module's API, on
   global row arrays that this function blocks over the mesh; each shard
@@ -65,13 +72,9 @@ Part = Dict[str, Tuple[torch.Tensor, ...]]
 
 
 def data_shards(mesh, axis: str = "data") -> int:
-    """The mesh's shard count; only the ``data`` axis shards rows."""
-    others = [(n, s) for n, s in mesh.axes if n != axis and s != 1]
-    if others:
-        raise ValueError(
-            f"mesh axes {dict(others)}: the port shards rows over {axis!r} "
-            "only (a model axis is ROADMAP Queue 1: item 7's half of item 6)")
-    return mesh.shape.get(axis, 1)
+    """The mesh's row shards: the size of ``axis``. Every other axis (the
+    ``model`` axis) replicates the rows."""
+    return mesh.axis_size(axis)
 
 
 # -- gather and merge -----------------------------------------------------------
@@ -88,34 +91,46 @@ def _uncols(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype)
 
 
-def gather_parts(local: Sequence[Tuple[int, Part]], n_shards: int) -> List[Part]:
-    """Every shard's part, in shard order: this process's own, plus (in a
-    gang) the others' from one all-gather of one packed int64 block."""
+def gather_parts(local: Sequence[Tuple[int, Part]], mesh) -> List[Part]:
+    """Every data shard's part, in shard order: this process's own, plus
+    (in a gang) the others' from one all-gather of one packed int64 block.
+    A shard held by several processes (replicas along ``model``) is taken
+    from its owner, the lowest of them; a process that holds fewer shards
+    than another pads its block."""
     local = sorted(local, key=lambda sp: sp[0])
+    n_shards = mesh.n_shards if mesh is not None else 1
     if mesh_mod.gang_world() == 1:
         if [s for s, _p in local] != list(range(n_shards)):
             raise RuntimeError(
                 f"shards {[s for s, _p in local]} of {n_shards}: a process "
                 "outside a gang must hold every shard")
         return [p for _s, p in local]
+    held = [mesh.held_shards(r) for r in range(mesh_mod.gang_world())]
+    if [s for s, _p in local] != held[mesh.rank]:
+        raise RuntimeError(f"shards {[s for s, _p in local]}: this process "
+                           f"holds {held[mesh.rank]}")
     spec = [(key, [(t.dtype, t.shape[1]) for t in tensors])
             for key, tensors in local[0][1].items()]
-    block = torch.cat([_cols(t) for _s, part in local
-                       for key, _ in spec for t in part[key]], dim=1)
+    cols = [torch.cat([_cols(t) for key, _ in spec for t in part[key]], dim=1)
+            for _s, part in local]
+    width = cols[0].shape[1]
+    pad = max(map(len, held)) - len(local)
+    if pad:
+        cols.append(cols[0].new_zeros((cols[0].shape[0], pad * width)))
+    gathered = mesh_mod.all_gather(torch.cat(cols, dim=1))
     parts: List[Part] = []
-    for got in mesh_mod.all_gather(block):
-        off = 0
-        for _ in range(len(local)):
-            part = {}
-            for key, fields in spec:
-                tensors = []
-                for dtype, width in fields:
-                    tensors.append(_uncols(got[:, off:off + width], dtype))
-                    off += width
-                part[key] = tuple(tensors)
-            parts.append(part)
-    if len(parts) != n_shards:
-        raise RuntimeError(f"gathered {len(parts)} shards' candidates, mesh has {n_shards}")
+    for s in range(n_shards):
+        owner = mesh.shard_holders(s)[0]
+        off = held[owner].index(s) * width
+        got = gathered[owner]
+        part = {}
+        for key, fields in spec:
+            tensors = []
+            for dtype, w in fields:
+                tensors.append(_uncols(got[:, off:off + w], dtype))
+                off += w
+            part[key] = tuple(tensors)
+        parts.append(part)
     return parts
 
 
@@ -192,9 +207,12 @@ def _blocks(mesh, rows_arrays, axis):
     if n % d:
         raise ValueError(f"{n} rows do not divide the mesh's {axis} axis ({d})")
     rows = n // d
-    for s in mesh.local_positions():
-        dev = mesh.devices[s]
+    for s, dev in mesh.local_shards().items():
         yield s, rows, tuple(a[s * rows:(s + 1) * rows].to(dev) for a in rows_arrays)
+
+
+def _merge_device(mesh) -> torch.device:
+    return next(iter(mesh.local_shards().values()))
 
 
 def sharded_multi_lane(
@@ -209,7 +227,7 @@ def sharded_multi_lane(
     and keeps only its own blocks."""
     queries = _OnDevice(q_emb=q_emb, q_lex=q_lex, q_tech=q_tech,
                         allowed=allowed_calls, dmin=date_min, dmax=date_max)
-    merge_dev = mesh.devices[mesh.local_positions()[0]]
+    merge_dev = _merge_device(mesh)
     local = []
     for s, rows, arrays in _blocks(
             mesh, (emb, lex_w, tech, call_idx, started_sec, has_emb), axis):
@@ -218,7 +236,7 @@ def sharded_multi_lane(
             *arrays, q["q_emb"], q["q_lex"], q["q_tech"], q["allowed"],
             q["dmin"], q["dmax"], k_dense=k_dense, k_lex=k_lex, k_tech=k_tech)
         local.append((s, _globalize(part, s * rows, merge_dev)))
-    parts = gather_parts(local, data_shards(mesh, axis))
+    parts = gather_parts(local, mesh)
     return merge_parts(parts, {"dense": k_dense, "lex": k_lex, "tech": k_tech})
 
 
@@ -233,7 +251,7 @@ def sharded_dense_topk(
         has_emb = torch.ones(emb.shape[0], dtype=torch.bool, device=emb.device)
     queries = _OnDevice(q_emb=q_emb, allowed=allowed_calls, dmin=date_min,
                         dmax=date_max)
-    merge_dev = mesh.devices[mesh.local_positions()[0]]
+    merge_dev = _merge_device(mesh)
     local = []
     for s, rows, (e, c, st, h) in _blocks(mesh, (emb, call_idx, started_sec, has_emb),
                                           axis):
@@ -242,7 +260,7 @@ def sharded_dense_topk(
         part = {"dense": masked_topk_exact(dense_scores(q["q_emb"], e), mask,
                                            min(k, rows))}
         local.append((s, _globalize(part, s * rows, merge_dev)))
-    parts = gather_parts(local, data_shards(mesh, axis))
+    parts = gather_parts(local, mesh)
     return merge_parts(parts, {"dense": k})["dense"]
 
 
@@ -322,7 +340,7 @@ def packed_lanes(
 
 
 def packed_merge(
-    local: Sequence[Tuple[int, Part]], n_shards: int, *,
+    local: Sequence[Tuple[int, Part]], mesh, *,
     chunk_ks: Tuple[int, int, int], artifact_ks: Tuple[int, int, int],
     fuse_rrf: bool,
 ) -> torch.Tensor:
@@ -332,7 +350,7 @@ def packed_merge(
     from ..ops.fusion import rrf_fuse_lanes_device
     from ..ops.pack import LANE_ORDER, _flatten_lanes, _flatten_merged
 
-    parts = gather_parts(local, n_shards)
+    parts = gather_parts(local, mesh)
     outs = []
     for tag, ks in (("c", chunk_ks), ("a", artifact_ks)):
         mine = [{key[2:]: v for key, v in p.items() if key.startswith(tag + "/")}
@@ -359,7 +377,7 @@ def packed_query(
         q_feats=q_feats, tech_q=tech_q, n_calls=n_calls, chunk_ks=chunk_ks,
         artifact_ks=artifact_ks, chunk_mode=chunk_mode,
         artifact_mode=artifact_mode, dense_enabled=dense_enabled)
-    return packed_merge(local, chunks.n_shards, chunk_ks=chunk_ks,
+    return packed_merge(local, chunks.mesh, chunk_ks=chunk_ks,
                         artifact_ks=artifact_ks, fuse_rrf=fuse_rrf)
 
 
@@ -374,7 +392,7 @@ def single_lanes(
                   dmin=dmin, dmax=dmax), corpus.device,
         k_dense=k_dense, k_lex=k_lex, k_tech=k_tech, dense_mode=dense_mode,
         dense_enabled=dense_enabled)
-    return merge_parts(gather_parts(local, corpus.n_shards),
+    return merge_parts(gather_parts(local, corpus.mesh),
                        {"lex": k_lex, "tech": k_tech, "dense": k_dense})
 
 
@@ -401,4 +419,4 @@ def ivf_lanes(
             q["q_emb"], emb, q["centroids"], q["buckets"], q["overflow"], mask,
             k=k, nprobe=state.nprobe, row0=s * corpus.shard_rows)
         local.append((s, {"dense": tuple(t.to(corpus.device) for t in (vals, pos, idx))}))
-    return merge_parts(gather_parts(local, corpus.n_shards), {"dense": k})["dense"]
+    return merge_parts(gather_parts(local, corpus.mesh), {"dense": k})["dense"]

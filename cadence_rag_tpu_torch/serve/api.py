@@ -12,9 +12,9 @@ Each request runs under an X-Request-ID logging context
 (reference: app/main.py:46-60).
 
 Counterpart of ``cadence_rag_tpu/serve/api.py``, every route of it.
-``startup`` takes the device the index and the in-process models live on,
-raises for each setting whose feature is not ported, reconciles an index already populated with the
-store, and starts the store syncer when ``STORE_SYNC_INTERVAL_S > 0``.
+``startup`` takes the device the index and the in-process models live on
+(every setting of the JAX package's, ``MESH_SHAPE`` with a ``model`` axis
+included), reconciles an index already populated with the store, and starts the store syncer when ``STORE_SYNC_INTERVAL_S > 0``.
 """
 
 from __future__ import annotations
@@ -421,22 +421,6 @@ def metrics_endpoint(_req: Request):
     return 200, registry.snapshot()
 
 
-def _unported_settings() -> List[str]:
-    """Why the current settings cannot be served by the port: one line
-    per setting whose feature is not ported, naming its ROADMAP item."""
-    problems = []
-    from ..parallel.mesh import parse_mesh_shape
-
-    model_axes = {name: size for name, size in parse_mesh_shape(settings.mesh_shape)
-                  if name != "data" and size != 1}
-    if model_axes:
-        problems.append(
-            f"MESH_SHAPE axes {model_axes}: the model axis (tensor-parallel "
-            "Qwen3 and embedder weights) is not ported yet (ROADMAP Queue 1: "
-            "item 7's half of item 6); the port shards rows over data only")
-    return problems
-
-
 def _join_gang(device: DeviceLike) -> DeviceLike:
     """The distributed branch of startup (``DIST_COORDINATOR``): join the
     process group at ``tcp://DIST_COORDINATOR`` as ``DIST_PROCESS_ID`` of
@@ -493,8 +477,7 @@ def _join_gang(device: DeviceLike) -> DeviceLike:
 def startup(device: DeviceLike = "cuda") -> None:
     """Fail-fast startup gate + index recovery (reference lifespan:
     app/main.py:33-39), on ``device`` (the card unless the caller asks
-    for the CPU; asking for CUDA without a card raises). Settings whose
-    feature is not ported raise before anything starts. With
+    for the CPU; asking for CUDA without a card raises). With
     ``DIST_COORDINATOR`` the process joins its gang first (``_join_gang``):
     a follower never returns from it. On CUDA, f32
     matmuls are pinned to full precision (``allow_tf32`` off): the IVF
@@ -507,9 +490,6 @@ def startup(device: DeviceLike = "cuda") -> None:
     ``STORE_SYNC_INTERVAL_S > 0``, and the trace listener
     (``serve/profiler.py``) when ``PROFILER_PORT > 0``."""
     configure_logging(settings.log_level)
-    problems = _unported_settings()
-    if problems:
-        raise RuntimeError("; ".join(problems))
     if settings.dist_coordinator.strip():
         device = _join_gang(device)
     store = get_store()

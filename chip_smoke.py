@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's /retrieve path once on one CUDA card.
 
-    python3 chip_smoke.py [--details PATH]
+    python3 chip_smoke.py [--details PATH] [--phase model_axis]
 
 Phases, each printing a line or a few; any failure exits nonzero without the
 final result line:
@@ -177,6 +177,26 @@ final result line:
              --processes 2``. Then K1 and K3 against their plain versions at
              every shard shape the phase launched and timed there; the
              kernels line counts their launches per shard.
+10b. model_axis — the ``model`` mesh axis (``parallel/tensor.py``), after
+             the earlier phases freed the card, in a child process of its
+             own: (1) the Qwen3 4b preset born sharded over data:1,model:2 on
+             ``[cuda:0, cuda:0]`` (bytes a position, init seconds), gathered
+             equal to the unsharded ``init_params`` bit for bit, a 128 x
+             16-token batch tensor-parallel against unsharded on the card
+             path (|err| and min cosine within ``QWEN_TP_ATOL`` /
+             ``QWEN_TP_MIN_COS``) and both timed at all 36 layers in turns
+             beside the bound; (2) the committed embedder dp+tp over
+             data:2,model:2 on ``[cuda:0] * 4``, 20 InfoNCE steps of 32 x 48
+             tokens beside the unsharded ``train_step`` (each loss, the
+             gathered parameters, ms a step); (3)
+             ``graft.dryrun_multichip(8)``; (4) 131,072 chunks + 16,384
+             artifacts under data:2,model:2 and under data:2: a batch of 128
+             in ``ann`` and in ``exact`` with every known row first, K1 and K3
+             launched once per data shard a dispatch (not per position), the
+             outputs the data:2 index's bit for bit, the engine's ids_only
+             answers alike; K1 and K3 against their plain versions at the
+             shapes it launched. The kernels line counts its launches as
+             ``model_axis``.
 11. harness — the measurement and deployment entry points on the card, last
              (after the parallel phase and the synchronous growth), in a
              child process of their own: (1)
@@ -2461,18 +2481,20 @@ def run_lifecycle_served(device, index, workdir, dispatches, survivors,
 # PR, so its known documents stay on the same texts
 FROZEN_SOURCES = ("cadence_rag_tpu/*.py", "cadence_rag_tpu/*/*.py", "tests/unit/*.py",
                   "tests/integration/*.py", "tests/kernels/*.py", "docs/*.md")
+# root Markdown that names the card or the port's package follows the port
+PORT_MARKS = ("H100", "cadence_rag_tpu_torch")
 
 
 def source_texts(n):
     """n distinct documents of real text: windows of three consecutive
     non-empty lines of the checkout's sources that no PR of the port edits
     (``FROZEN_SOURCES``, and the root's Markdown but the documents that
-    follow the port, which name its card, the H100), then of two and of four
-    lines, if three do not give enough."""
+    follow the port, which name its card or its package: ``PORT_MARKS``),
+    then of two and of four lines, if three do not give enough."""
     root = Path(__file__).resolve().parent
     files = sorted({p for pat in FROZEN_SOURCES for p in root.glob(pat)}
                    | {p for p in root.glob("*.md")
-                      if "H100" not in p.read_text(errors="ignore")})
+                      if not any(m in p.read_text(errors="ignore") for m in PORT_MARKS)})
     lines = []
     for path in files:
         try:
@@ -3230,16 +3252,21 @@ def paraphrase_mrr(embed):
 
 
 def gate_with_ids(device, **kwargs):
-    """The real gate, with the ids of every gold query's answer. The calls
-    it ingests start one second apart from a fixed date, as the parity
-    tests' clock has them: the tech lane ranks by the call's start second,
-    so two runs on the wall clock may rank differently. -> outcome"""
+    """The real gate, with the ids of every gold query's answer and each
+    answer's per-lane ranks and scores (the same queries once more with
+    ``debug``, on the gate's own store and index). The calls it ingests
+    start one second apart from a fixed date, as the parity tests' clock
+    has them: the tech lane ranks by the call's start second, so two runs on
+    the wall clock may rank differently. -> outcome"""
     import itertools
     from datetime import datetime, timedelta, timezone
 
+    from cadence_rag_tpu_torch.engine.retrieve import retrieve_evidence_batch
     from cadence_rag_tpu_torch.evals import metrics
+    from cadence_rag_tpu_torch.evals.fixtures import GOLD_QUERIES
     from cadence_rag_tpu_torch.evals.real_gate import run_gate
     from cadence_rag_tpu_torch.ingest import ingest
+    from cadence_rag_tpu_torch.schemas import RetrieveRequest
 
     seen = {}
     inner, clock = metrics.compute_metrics, ingest.now_utc
@@ -3248,6 +3275,10 @@ def gate_with_ids(device, **kwargs):
 
     def recording(gold, results, **kw):
         seen["results"] = results
+        seen["lanes"] = {query_id: r["debug"]["lanes"] for (query_id, _q, _n), r in zip(
+            GOLD_QUERIES, retrieve_evidence_batch([
+                RetrieveRequest(query=q, return_style="ids_only", debug=True)
+                for _id, q, _n in GOLD_QUERIES]))}
         return inner(gold, results, **kw)
 
     metrics.compute_metrics = recording
@@ -3256,7 +3287,70 @@ def gate_with_ids(device, **kwargs):
         outcome = run_gate(device=device, **kwargs)
     finally:
         metrics.compute_metrics, ingest.now_utc = inner, clock
-    return {**outcome, "results": seen["results"]}
+    return {**outcome, "results": seen["results"], "lanes": seen["lanes"]}
+
+
+RRF_K = 60
+
+
+def _corpus_of(answer_id):
+    kind, _, num = answer_id.partition(":")
+    return (("chunks", "chunk_id") if kind == "chunk"
+            else ("artifacts", "artifact_chunk_id")), num
+
+
+def lane_ranks(lanes, answer_id):
+    """One answer id's (``chunk:N`` / ``artifact_chunk:N``) RRF score from
+    the debug lanes' ranks (sum of 1/(60 + rank), in f64 as the host merge
+    takes it) and its (rank, score) in each lane that holds it."""
+    (corpus, field), num = _corpus_of(answer_id)
+    held = {lane: (row["rank"], row["score"]) for lane, rows in lanes[corpus].items()
+            for row in rows if str(row[field]) == num}
+    return sum(1.0 / (RRF_K + rank) for rank, _score in held.values()), held
+
+
+def gate_gaps(card, cpu):
+    """Where the card's real gate answers otherwise than the CPU's: for each
+    such query, the first rank that differs, the two ids there, and each
+    id's fused score and lanes on both devices. The gap is the fused score
+    between the two rows on each device: a near-tie is a gap of a few f32
+    ulps that flips sign between the devices. -> [report]"""
+    out = []
+    for query_id, want in cpu["results"].items():
+        got = card["results"].get(query_id, [])
+        if got == want:
+            continue
+        rank = next(i for i, (a, b) in enumerate(zip(got + [None] * len(want),
+                                                      want + [None] * len(got)))
+                    if a != b)
+        ids = {"card": got[rank] if rank < len(got) else None,
+               "cpu": want[rank] if rank < len(want) else None}
+        rows = {}
+        for side, outcome in (("card", card), ("cpu", cpu)):
+            lanes = outcome["lanes"][query_id]
+            rows[side] = {which: dict(zip(("fused", "lanes"), lane_ranks(lanes, i)))
+                          for which, i in ids.items() if i is not None}
+        gap = {side: (r["card"]["fused"] - r["cpu"]["fused"]) if len(r) == 2 else None
+               for side, r in rows.items()}
+        # a lane that holds an id on one device and not on the other: its
+        # last row (the k-th) on each, whose scores a near-tie puts close
+        edges = {}
+        for which, i in ids.items():
+            if i is None:
+                continue
+            (corpus, field), _num = _corpus_of(i)
+            held = {side: set(r[which]["lanes"]) for side, r in rows.items()}
+            for lane in held["card"] ^ held["cpu"]:
+                last = {side: outcome["lanes"][query_id][corpus][lane][-1]
+                        for side, outcome in (("card", card), ("cpu", cpu))}
+                edges[f"{corpus}/{lane}"] = {
+                    side: [row[field], row["rank"], row["score"]]
+                    for side, row in last.items()}
+                edges[f"{corpus}/{lane}"]["gap"] = abs(
+                    last["card"]["score"] - last["cpu"]["score"])
+        out.append({"query": query_id, "rank": rank + 1, "ids": ids, "rows": rows,
+                    "fused_gap": gap, "lane_edges": edges})
+    return out
 
 
 EMBED_SERVICE_TEXTS = (
@@ -3423,7 +3517,8 @@ def _models_offline(device, workdir, cpu_gate):
                                f"card are not the CPU's in {heads}")
         out["gate_neural"].update(
             answers=len(cpu), same_answers=sum(got[q] == cpu[q] for q in cpu),
-            cpu_metrics=gates["cpu"]["metrics"])
+            cpu_metrics=gates["cpu"]["metrics"],
+            gaps=gate_gaps(gates["card"], gates["cpu"]))
 
     rr = rerank_gate(device=device, params_path=str(RERANKER_ARTIFACT))
     if rr["failures"]:
@@ -3732,15 +3827,20 @@ def shard_launches():
 @contextlib.contextmanager
 def off_the_tally():
     """Launches inside (timing repeats, comparisons) are not the main
-    path's: the per-shard tally is restored after them."""
+    path's: the per-shard tally and K1's and K3's counts are restored after
+    them."""
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
     from cadence_rag_tpu_torch.parallel import sharded
 
     saved = {key: collections.Counter(t) for key, t in sharded.launches_by_shard.items()}
+    counts = fused_scan.launches, range_topk.launches
     try:
         yield
     finally:
         sharded.launches_by_shard.clear()
         sharded.launches_by_shard.update(saved)
+        fused_scan.launches, range_topk.launches = counts
 
 
 def packed_flat(index, args, modes, fuse):
@@ -3881,7 +3981,7 @@ def time_sharded_program(full, sh, args, modes, batch, device):
             lambda: sharded.packed_lanes(sh.chunks, sh.artifacts, packed,
                                          **statics), 5),
         "merge_ms": cuda_ms(
-            lambda: sharded.packed_merge(local, 2, chunk_ks=CHUNK_KS,
+            lambda: sharded.packed_merge(local, sh.chunks.mesh, chunk_ks=CHUNK_KS,
                                          artifact_ks=ARTIFACT_KS, fuse_rrf=True), 20),
         "unsharded_program_ms": cuda_ms(
             lambda: dual_corpus_retrieve_packed(
@@ -4580,6 +4680,381 @@ def run_serve_all(device):
     return out
 
 
+# -- the model axis (parallel/tensor.py, the tensor-parallel models) --------------
+QWEN_TP_SPEC = "data:1,model:2"
+MODEL_AXIS_SPEC = "data:2,model:2"
+# JAX's own tolerance for tensor-parallel against one device
+# (tests/unit/test_qwen3.py), and a cosine floor per unit vector
+QWEN_TP_ATOL = 2e-2
+QWEN_TP_MIN_COS = 0.999
+EMB_TP_LR = 1e-4
+# each step's loss within tests/test_torch_training.py's TRAJECTORY_ATOL, and
+# the parameters' change after the last step, gathered, within
+# EMB_TP_CHANGE_RTOL of the unsharded change as a share of it
+# (param_change_gap: a run that changes nothing reads 1; the CPU's three
+# steps against JAX read 0.041, tests/test_torch_tensor_parallel.py)
+EMB_TP_LOSS_ATOL = 1.5e-2
+EMB_TP_CHANGE_RTOL = 0.1
+# the phase's sizes on the card: the 4b preset at a 128 x 16-token batch, the
+# committed embedder 20 steps on 32 x 48 tokens, serving at 131,072 chunks +
+# 16,384 artifacts (the main path's widths at an eighth of its depth)
+MODEL_AXIS_KW = dict(preset="4b", q_batch=128, q_seq=16, q_reps=3, emb_steps=20,
+                     emb_batch=32, n_chunks=131_072, n_artifacts=16_384, batch=128,
+                     n_known=N_KNOWN)
+
+
+def seeded_tokens(rng, batch, seq, vocab):
+    """(batch, seq) int32 ids in [1, vocab), each row padded after a length
+    in [2, seq]."""
+    tokens = rng.integers(1, vocab, size=(batch, seq)).astype(np.int32)
+    for row, length in enumerate(rng.integers(2, seq + 1, size=batch)):
+        tokens[row, length:] = 0
+    return tokens
+
+
+def timed_in_turns(fns, reps, sync):
+    """{name: [ms]} of each of two calls, in turns (a, b, b, a) x reps."""
+    (a, fa), (b, fb) = fns.items()
+    times = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)) * reps:
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        times[name].append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def qwen_tensor_parallel(device, preset, batch, seq, reps):
+    """Step 1: the Qwen3 preset born sharded over ``QWEN_TP_SPEC`` on
+    ``[device, device]``: init seconds and bytes a position; the shards
+    gathered equal the unsharded ``init_params`` bit for bit; one batch
+    tensor-parallel against unsharded (the card path on CUDA): max |err|
+    and min cosine; each timed in turns. -> summary"""
+    from cadence_rag_tpu_torch.models import prng, qwen3
+    from cadence_rag_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = qwen3.PRESETS[preset]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    mesh = make_mesh(QWEN_TP_SPEC, [device, device])
+    out = {"preset": preset, "mesh": QWEN_TP_SPEC, "batch": [batch, seq]}
+    sync()
+    t = time.perf_counter()
+    sharded = qwen3.init_params(cfg, prng.PRNGKey(0), device, mesh=mesh)
+    sync()
+    out["init_sharded_s"] = time.perf_counter() - t
+    out["bytes_per_position"] = [sharded.params.nbytes(pos) for pos in range(mesh.size)]
+    t = time.perf_counter()
+    whole = qwen3.init_params(cfg, prng.PRNGKey(0), device)
+    sync()
+    out["init_unsharded_s"] = time.perf_counter() - t
+    out["bytes_unsharded"] = sum(p.numel() * p.element_size() for p in whole.params().values())
+    gathered = qwen3.gather_params(sharded).params()
+    differ = [name for name, p in whole.params().items() if not torch.equal(gathered[name], p)]
+    del gathered
+    if differ:
+        raise RuntimeError(f"model axis: the born-sharded {preset} gathers otherwise "
+                           f"than the unsharded init in {differ}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tokens = seeded_tokens(np.random.default_rng(0), batch, seq, cfg.vocab_buckets)
+    tp_vecs, vecs = sharded(tokens), whole(torch.from_numpy(tokens))
+    if not (torch.isfinite(tp_vecs).all() and torch.isfinite(vecs).all()):
+        raise RuntimeError("model axis: non-finite qwen3 vectors")
+    out["max_abs_err"] = float((tp_vecs - vecs).abs().max())
+    out["min_cos"] = float((tp_vecs * vecs).sum(dim=1).min())
+    if out["max_abs_err"] > QWEN_TP_ATOL or out["min_cos"] < QWEN_TP_MIN_COS:
+        raise RuntimeError(f"model axis: qwen3 {preset} tensor-parallel against "
+                           f"unsharded |err| {out['max_abs_err']:.3g}, min cosine "
+                           f"{out['min_cos']:.6f} (limits {QWEN_TP_ATOL}, "
+                           f"{QWEN_TP_MIN_COS})")
+    ids = torch.from_numpy(tokens)
+    out["ms"] = timed_in_turns({"unsharded": lambda: whole(ids),
+                                "tensor_parallel": lambda: sharded(tokens)}, reps, sync)
+    out["bound_ms"] = encoder_bound_ms(cfg, batch * seq)
+    if device.type == "cuda":
+        # the forward's all-reduces alone: two a layer, each the sum of the
+        # model group's f32 (batch, seq, d_model) partials
+        from cadence_rag_tpu_torch.parallel import tensor as tp
+
+        parts = {pos: torch.randn(batch, seq, cfg.d_model, device=device)
+                 for pos in mesh.model_group(0)}
+        out["all_reduces"] = 2 * cfg.n_layers
+        out["all_reduce_ms"] = cuda_ms(
+            lambda: [tp.all_reduce(parts, mesh) for _ in range(out["all_reduces"])], 5)
+        del parts
+    del sharded, whole
+    return out
+
+
+def param_change_gap(got, want, start):
+    """||(got - start) - (want - start)|| / ||want - start|| over every
+    leaf (name -> tensor): how far one run moved the parameters otherwise
+    than the other, as a share of the other's move."""
+    num = den = 0.0
+    for name, value in want.items():
+        moved = value.double() - start[name].double()
+        num += float(((got[name].double() - start[name].double() - moved) ** 2).sum())
+        den += float((moved ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def embedder_dp_tp(device, steps, batch):
+    """Step 2: the committed embedder dp+tp over ``MODEL_AXIS_SPEC`` on
+    ``[device] * 4``, ``steps`` InfoNCE steps from the artifact's weights on
+    seeded batches, beside the unsharded ``train_step`` on the same batches:
+    each step's loss, the parameters after the last step gathered against
+    the unsharded ones, ms a step of each. -> summary"""
+    import copy
+
+    from cadence_rag_tpu_torch.models import embedder as emb
+    from cadence_rag_tpu_torch.parallel.mesh import make_mesh
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    mesh = make_mesh(MODEL_AXIS_SPEC, [device] * 4)
+    ref, cfg = emb.load_params(str(EMBEDDER_ARTIFACT), device)
+    sharded = emb.shard_params(copy.deepcopy(ref), mesh)
+    opt_ref, opt_tp = emb.adamw_init(ref), emb.adamw_init(sharded.params.leaves())
+    start = {name: p.detach().clone() for name, p in ref.named_parameters()}
+    rng = np.random.default_rng(0)
+    out = {"mesh": MODEL_AXIS_SPEC, "steps": steps, "batch": [batch, cfg.max_len],
+           "lr": EMB_TP_LR, "losses": [], "ms": {"unsharded": [], "dp_tp": []}}
+    for _ in range(steps):
+        a, p = (seeded_tokens(rng, batch, cfg.max_len, cfg.vocab_buckets) for _ in range(2))
+        losses = []
+        for name, (model, opt) in (("unsharded", (ref, opt_ref)), ("dp_tp", (sharded, opt_tp))):
+            sync()
+            t = time.perf_counter()
+            _m, _o, loss = emb.train_step(model, opt, a, p, lr=EMB_TP_LR)
+            losses.append(float(loss))
+            sync()
+            out["ms"][name].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(losses)
+    out["loss_gap"] = max(abs(u - s) for u, s in out["losses"])
+    with torch.no_grad():
+        got = dict(emb.gather_params(sharded).named_parameters())
+        want = dict(ref.named_parameters())
+        out["param_change_gap"] = param_change_gap(got, want, start)
+        out["param_max_abs"] = max(float((got[name] - p).abs().max())
+                                   for name, p in want.items())
+    if not all(np.isfinite(out["losses"]).ravel()) or out["loss_gap"] > EMB_TP_LOSS_ATOL \
+            or not out["param_change_gap"] <= EMB_TP_CHANGE_RTOL:
+        raise RuntimeError(f"model axis: dp+tp steps against unsharded: loss gap "
+                           f"{out['loss_gap']:.3g} (limit {EMB_TP_LOSS_ATOL}), "
+                           f"parameters' change {out['param_change_gap']:.3g} apart "
+                           f"(limit {EMB_TP_CHANGE_RTOL})")
+    return out
+
+
+def model_axis_serving(device, n_chunks, n_artifacts, batch, n_known, workdir):
+    """Step 4: the main path's rows copied into an index under
+    ``MODEL_AXIS_SPEC`` and one under ``data:2`` (``[device] * 4`` and
+    ``* 2``); a batch of ``batch`` in ``ann`` (unscoped) and in ``exact``
+    (scoped) through the index API: every known row first, K1 and K3
+    launched once per data shard a dispatch (not per position), the fused
+    and per-lane outputs those of the ``data:2`` index bit for bit; then
+    through the engine (ids_only) the ``data:2`` index's answers. K1's and
+    K3's counts hold the ``MODEL_AXIS_SPEC`` index's dispatches alone: they
+    are set to 0 just before them, and the ``data:2`` index's dispatches
+    and the per-lane reruns are kept off them.
+    -> summary, with the dispatches and the shard shapes for
+    ``check_served_shapes``"""
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.evals.synth import install_sharded_copy
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+    from cadence_rag_tpu_torch.parallel import sharded as sharded_mod
+    from cadence_rag_tpu_torch.parallel.mesh import make_mesh
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    full, texts, tokens = build_index(device, n_chunks, n_artifacts, n_known)
+    indexes = {}
+    for spec, n in ((MODEL_AXIS_SPEC, 4), ("data:2", 2)):
+        sh = DeviceIndexManager(device, mesh=make_mesh(spec, [device] * n))
+        sh.ensure_call_capacity(full.call_capacity)
+        install_sharded_copy(full.chunks, sh.chunks)
+        install_sharded_copy(full.artifacts, sh.artifacts)
+        indexes[spec] = sh
+    del full
+    sync()
+    ma, d2 = indexes[MODEL_AXIS_SPEC], indexes["data:2"]
+    out = {"mesh": MODEL_AXIS_SPEC, "setup_s": time.perf_counter() - t0,
+           "shards": sorted(ma.chunks._shards),
+           "shard_rows": {"chunks": ma.chunks.shard_rows,
+                          "artifacts": ma.artifacts.shard_rows}}
+    dispatches = DispatchLog(ma)
+    batches = [(name,) + plan_batch(ma, texts, tokens, batch, scoped)
+               for name, scoped in (("unscoped", False), ("scoped", True))]
+    out["modes"] = [modes for _name, _args, modes, _e in batches]
+    if out["modes"] != [("ann", "ann"), ("exact", "exact")]:
+        raise RuntimeError(f"model axis: planned {out['modes']}, not ann and exact")
+    sharded_mod.launches_by_shard.clear()
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    flats = {}
+    for name, args, modes, expected in batches:
+        flats[name], got = packed_flat(ma, args, modes, True)
+        check_first(got, expected, f"model axis {name}")
+    out["launches_by_shard"] = shard_launches()
+    # every data shard scanned once a dispatch (the CPU runs the plain
+    # versions: its tallies stay empty)
+    want = {f"{c}/{s}": ({"fused_scan": len(batches), "tech_topk": len(batches)}
+                         if cuda else {})
+            for c in ("artifact_chunks", "chunks") for s in range(2)}
+    if out["launches_by_shard"] != want:
+        raise RuntimeError(f"model axis: K1 and K3 launches by shard "
+                           f"{out['launches_by_shard']}, not once per data shard: {want}")
+    with off_the_tally():
+        for name, args, modes, _expected in batches:
+            same = np.array_equal(flats[name], packed_flat(d2, args, modes, True)[0])
+            lanes = np.array_equal(packed_flat(ma, args, modes, False)[0],
+                                   packed_flat(d2, args, modes, False)[0])
+            if not (same and lanes):
+                raise RuntimeError(f"model axis {name}: the output is not the data:2 "
+                                   f"index's (fused {same}, lanes {lanes})")
+    got = engine_known_answers(ma, texts, batch, workdir)
+    out["launches"] = {"fused_scan": fused_scan.launches, "tech_topk": range_topk.launches}
+    with off_the_tally():
+        if got != engine_known_answers(d2, texts, batch, workdir):
+            raise RuntimeError("model axis: the engine answers otherwise than under data:2")
+    wrong = [j for j, ids in enumerate(got) if ids[:1] != [f"chunk:{KNOWN_ID0 + j % n_known}"]]
+    if wrong:
+        raise RuntimeError(f"model axis: known row not first through the engine for "
+                           f"{len(wrong)} requests")
+    out["engine_answers"] = len(got)
+    out["dispatched"] = dispatches.take()
+    out["corpora"] = {
+        name: {"rows": c.shard_rows, "dim": c.dim, "lex_dim": c.lex_dim,
+               "slots": c.tech_slots, "emb_dtype": str(c.emb_dtype).split(".")[-1]}
+        for name, c in (("chunks", ma.chunks), ("artifacts", ma.artifacts))}
+    del indexes, ma, d2
+    return out
+
+
+def run_model_axis(device, workdir, preset, q_batch, q_seq, q_reps, emb_steps,
+                   emb_batch, n_chunks, n_artifacts, batch, n_known):
+    """The model axis on one device, in four steps (each a function above):
+    the Qwen3 preset tensor-parallel, the embedder's dp+tp steps,
+    ``graft.dryrun_multichip(8)``, and serving under ``MODEL_AXIS_SPEC``;
+    then, on CUDA, K1 and K3 against their plain versions at the shapes
+    serving launched them with (launches not counted). -> summary"""
+    from cadence_rag_tpu_torch import graft
+    from cadence_rag_tpu_torch.ops.fused_scan import fused_scan
+    from cadence_rag_tpu_torch.ops.tech_keys import range_topk
+
+    device = torch.device(device)
+    out = {"steps_s": {}}
+    t0 = mark = time.perf_counter()
+
+    def step(name):
+        nonlocal mark
+        out["steps_s"][name] = time.perf_counter() - mark
+        mark = time.perf_counter()
+
+    log(f"model_axis 1/4: qwen3 {preset} born sharded over {QWEN_TP_SPEC} on "
+        f"[{device}, {device}], a {q_batch} x {q_seq}-token batch against unsharded")
+    out["qwen3"] = qwen_tensor_parallel(device, preset, q_batch, q_seq, q_reps)
+    step("qwen3")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"model_axis 2/4: the committed embedder dp+tp over {MODEL_AXIS_SPEC}, "
+        f"{emb_steps} InfoNCE steps of {emb_batch} pairs against unsharded")
+    out["embedder"] = embedder_dp_tp(device, emb_steps, emb_batch)
+    step("embedder")
+    log(f"model_axis 3/4: graft.dryrun_multichip(8, device={device.type!r})")
+    fused_scan.launches = 0
+    range_topk.launches = 0
+    graft.dryrun_multichip(8, device=device)
+    out["dryrun_launches"] = {"fused_scan": fused_scan.launches,
+                              "tech_topk": range_topk.launches}
+    step("dryrun")
+    log(f"model_axis 4/4: serving under {MODEL_AXIS_SPEC}, {n_chunks} chunks + "
+        f"{n_artifacts} artifacts, batches of {batch} in ann and exact")
+    out["serving"] = model_axis_serving(device, n_chunks, n_artifacts, batch, n_known,
+                                        Path(workdir))
+    step("serving")
+    out["launches"] = out["serving"]["launches"]
+    out["s"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        sv = out["serving"]
+        sv["shapes"] = check_served_shapes(device, sv["dispatched"], {
+            name: dict(c, emb_dtype=getattr(torch, c["emb_dtype"]))
+            for name, c in sv["corpora"].items()}, seed=70)
+    return out
+
+
+MODEL_AXIS_CHILD = r"""
+import json, sys, tempfile
+for name in ("jax", "jaxlib", "cadence_rag_tpu"):
+    sys.modules[name] = None
+import torch
+import chip_smoke
+from cadence_rag_tpu_torch.kernels import build
+build.load()
+torch.backends.cuda.matmul.allow_tf32 = False
+with tempfile.TemporaryDirectory(prefix="chip_smoke_model_axis_") as tmp:
+    out = chip_smoke.run_model_axis(torch.device(sys.argv[1]), tmp,
+                                    **chip_smoke.MODEL_AXIS_KW)
+with open(sys.argv[2], "w") as fh:
+    json.dump(out, fh)
+"""
+
+
+def run_model_axis_child(device):
+    """``run_model_axis`` in a process of its own, after the earlier phases
+    freed the card (as the harness phase runs). Its lines go to this
+    process's output; its counts of K1 and K3 launches are the child's,
+    from 0. -> its summary"""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_axis_") as tmp:
+        path = Path(tmp) / "model_axis.json"
+        proc = subprocess.run(
+            [sys.executable, "-c", MODEL_AXIS_CHILD, str(device), str(path)],
+            env=child_env(), timeout=400)
+        if proc.returncode != 0 or not path.exists():
+            raise RuntimeError(f"the model_axis phase failed (rc {proc.returncode})")
+        return json.loads(path.read_text())
+
+
+def report_model_axis(ma, smi):
+    """The model_axis phase's lines."""
+    q, e, sv = ma["qwen3"], ma["embedder"], ma["serving"]
+    med = {name: float(np.median(ts)) for name, ts in q["ms"].items()}
+    log(f"model_axis qwen3 ({smi}): {q['preset']} born sharded over {q['mesh']} in "
+        f"{q['init_sharded_s']:.2f} s (unsharded {q['init_unsharded_s']:.2f} s), "
+        f"{q['bytes_per_position'][0] / 1e9:.3f} GB a position of "
+        f"{q['bytes_unsharded'] / 1e9:.3f} GB; gathered equal to the unsharded init bit "
+        f"for bit; batch {q['batch'][0]} x {q['batch'][1]} tokens tensor-parallel against "
+        f"unsharded |err| {q['max_abs_err']:.3g}, min cosine {q['min_cos']:.6f} (limits "
+        f"{QWEN_TP_ATOL}, {QWEN_TP_MIN_COS}); ms a batch at all {q['preset']} layers: "
+        f"unsharded {med['unsharded']:.2f} ({q['ms']['unsharded']}), tensor-parallel "
+        f"{med['tensor_parallel']:.2f} ({q['ms']['tensor_parallel']}), bound "
+        f"{q['bound_ms']:.2f} ms; its {q['all_reduces']} all-reduces alone "
+        f"{q['all_reduce_ms']:.3f} ms of device time")
+    ms = {name: float(np.median(ts[1:] or ts)) for name, ts in e["ms"].items()}
+    log(f"model_axis embedder ({smi}): tuned_small_v1.npz dp+tp over {e['mesh']}, "
+        f"{e['steps']} InfoNCE steps of {e['batch'][0]} x {e['batch'][1]} tokens at lr "
+        f"{e['lr']}: loss gap to the unsharded step {e['loss_gap']:.3g} (limit "
+        f"{EMB_TP_LOSS_ATOL}; first {e['losses'][0]}, last {e['losses'][-1]}), "
+        f"the parameters' change after the last step {e['param_change_gap']:.4g} of the "
+        f"unsharded change apart (limit {EMB_TP_CHANGE_RTOL}; max |err| "
+        f"{e['param_max_abs']:.3g}); median ms a step after the first: unsharded "
+        f"{ms['unsharded']:.2f}, dp+tp {ms['dp_tp']:.2f}")
+    log(f"model_axis serving ({smi}): {sv['mesh']} over one card, shards "
+        f"{sv['shards']} of {sv['shard_rows']} rows (set up {sv['setup_s']:.1f} s); "
+        f"batches planned {sv['modes']}, every known row first, fused and per-lane "
+        f"outputs the data:2 index's bit for bit, {sv['engine_answers']} engine answers "
+        f"the data:2 index's; K1 and K3 launches by data shard {sv['launches_by_shard']}, "
+        f"in all (the engine's included) {sv['launches']}")
+    log(f"model_axis ({smi}): graft.dryrun_multichip(8) passed (K1 and K3 launches, "
+        f"not the main path's: {ma['dryrun_launches']}); steps (s) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ma["steps_s"].items())
+        + f"; phase {ma['s']:.1f} s in its child")
+
+
 def _proc_state(pid):
     try:
         return Path(f"/proc/{pid}/status").read_text().split("State:")[1].split("\n")[0]
@@ -4790,6 +5265,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", type=Path, default=None,
                         help="write every measurement as JSON to this file")
+    parser.add_argument("--phase", choices=["model_axis"], default=None,
+                        help="build the kernels and run this phase alone (no "
+                             "result line)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4824,6 +5302,10 @@ def main(argv=None) -> int:
         f"{build.LIB_PATH}; ptxas (registers at entry, spill stores/loads B): "
         + " | ".join(f"{r['kernel']} {r['registers']} regs, spills "
                      f"{r['spill_stores']}/{r['spill_loads']}" for r in ptxas))
+    if opts.phase == "model_axis":
+        details["model_axis"] = ma = run_model_axis_child(device)
+        report_model_axis(ma, smi)
+        return 0
 
     details["k1"] = check_k1(device, 1_048_576, 128, 1024, 4096,
                              torch.bfloat16, seed=1, reps=5)
@@ -5040,6 +5522,15 @@ def main(argv=None) -> int:
         f"{gn['same_answers']} of {gn['answers']} answers identical; dense-only "
         f"paraphrase MRR "
         f"{pm['neural']:.4f} against the stub's {pm['stub']:.4f}")
+    for gap in gn["gaps"]:
+        log(f"models neural real gate, an answer the card gives otherwise ({smi}): "
+            f"{gap['query']} rank {gap['rank']}, card {gap['ids']['card']} against CPU "
+            f"{gap['ids']['cpu']}; fused (card row - CPU row) on the card "
+            f"{gap['fused_gap']['card']!r}, on the CPU {gap['fused_gap']['cpu']!r}; "
+            + "; ".join(f"the {lane} lane's last row: card {e['card']}, CPU {e['cpu']} "
+                        f"([id, rank, score]), {e['gap']:.3g} apart"
+                        for lane, e in gap["lane_edges"].items())
+            + f"; rows {json.dumps(gap['rows'])}")
     log(f"models rerank gate ({smi}), two_register_v1.npz on the card: neural_raw "
         f"MRR {rg['neural_mrr']:.4f}, hybrid {rg['hybrid_mrr']:.4f}, lexical "
         f"{rg['lexical_mrr']:.4f}, shuffled {rg['shuffled_mrr']:.4f}; e2e through "
@@ -5311,8 +5802,14 @@ def main(argv=None) -> int:
     index.cancel_migrations()
     del index, batches, ivf_args
     held = release_card()
-    log(f"harness: {held / 2**30:.2f} GiB still allocated on the card by this "
+    log(f"model_axis: {held / 2**30:.2f} GiB still allocated on the card by this "
         "process; the phase runs in a child process")
+    details["model_axis"] = ma = run_model_axis_child(device)
+    if min(ma["launches"].values()) <= 0:
+        raise RuntimeError(f"the model_axis phase did not launch K1 and K3: {ma['launches']}")
+    report_model_axis(ma, smi)
+    k1_err = max(k1_err, ma["serving"]["shapes"]["k1_max_abs_err"])
+    log("harness: the phase runs in a child process")
     details["harness"] = hv = run_harness_child(device)
     if min(hv["launches"].values()) <= 0:
         raise RuntimeError(f"the harness phase did not launch K1 and K3: {hv['launches']}")
@@ -5326,7 +5823,8 @@ def main(argv=None) -> int:
         -> n, and each shard shape's time beside its bound."""
         out = {f"{where} {shard}": t.get(kernel, 0) for where, launches in (
             ("one process", pl["launches"]), ("gang leader", pg["launches_leader"]),
-            ("gang follower", pg["launches_follower"]))
+            ("gang follower", pg["launches_follower"]),
+            (f"model_axis {MODEL_AXIS_SPEC}", ma["serving"]["launches_by_shard"]))
             for shard, t in launches.items()}
         timed = details["k1_shard"] if kernel == "fused_scan" else details["k3_shard"]
         out["shapes"] = {name: {"rows": r["n"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5341,13 +5839,15 @@ def main(argv=None) -> int:
          "launches": (serve["launches"]["fused_scan"] + writes["launches"]["fused_scan"]
                       + lifecycle_launches["fused_scan"]
                       + models["launches"]["fused_scan"] + geo["launches"]
-                      + parallel_launches["fused_scan"] + hv["launches"]["fused_scan"]),
+                      + parallel_launches["fused_scan"] + ma["launches"]["fused_scan"]
+                      + hv["launches"]["fused_scan"]),
          "launches_by_phase": {"serve": serve["launches"]["fused_scan"],
                                "writes": writes["launches"]["fused_scan"],
                                "lifecycle": lifecycle_launches["fused_scan"],
                                "models": models["launches"]["fused_scan"],
                                "training": geo["launches"],
                                "parallel": parallel_launches["fused_scan"],
+                               "model_axis": ma["launches"]["fused_scan"],
                                "harness": hv["launches"]["fused_scan"]},
          "launches_by_shard": by_shard("fused_scan"),
          "max_abs_err": k1_err,
@@ -5359,12 +5859,14 @@ def main(argv=None) -> int:
          "launches": (serve["launches"]["tech_topk"] + writes["launches"]["tech_topk"]
                       + lifecycle_launches["tech_topk"]
                       + models["launches"]["tech_topk"]
-                      + parallel_launches["tech_topk"] + hv["launches"]["tech_topk"]),
+                      + parallel_launches["tech_topk"] + ma["launches"]["tech_topk"]
+                      + hv["launches"]["tech_topk"]),
          "launches_by_phase": {"serve": serve["launches"]["tech_topk"],
                                "writes": writes["launches"]["tech_topk"],
                                "lifecycle": lifecycle_launches["tech_topk"],
                                "models": models["launches"]["tech_topk"],
                                "parallel": parallel_launches["tech_topk"],
+                               "model_axis": ma["launches"]["tech_topk"],
                                "harness": hv["launches"]["tech_topk"]},
          "launches_by_shard": by_shard("tech_topk"),
          "max_abs_err": k3["max_abs_err"],

@@ -95,13 +95,13 @@ def _spawn(tmp_path, name, port, extra_env):
         env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
 
 
-def _gang(tmp_path, http_port):
+def _gang(tmp_path, http_port, mesh_shape="data:2"):
     coord = _free_port()
     gang_env = {
         "DIST_COORDINATOR": f"127.0.0.1:{coord}",
         "DIST_NUM_PROCESSES": "2",
         "DIST_OPLOG_PORT": str(_free_port()),
-        "MESH_SHAPE": "data:2",
+        "MESH_SHAPE": mesh_shape,
     }
     follower = _spawn(tmp_path, "follower", _free_port(),
                       {**gang_env, "DIST_PROCESS_ID": "1"})
@@ -121,9 +121,13 @@ def _stop(proc, timeout=30):
         raise
 
 
-def test_two_process_gang_matches_single_process(tmp_path):
+@pytest.mark.parametrize("mesh_shape", ["data:2", "data:1,model:2"])
+def test_two_process_gang_matches_single_process(tmp_path, mesh_shape):
+    """The gang answers as one process. Under ``data:1,model:2`` both
+    processes hold the one data shard (the model axis replicates rows):
+    each computes it, and the gather keeps the leader's copy."""
     http_port = _free_port()
-    leader, follower = _gang(tmp_path, http_port)
+    leader, follower = _gang(tmp_path, http_port, mesh_shape)
     try:
         _wait_health(http_port, leader, timeout_s=120)
         gang = _drive(http_port)

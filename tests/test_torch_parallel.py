@@ -104,10 +104,13 @@ class TestMesh:
         assert plan_gang(hosts, cards) == want
 
     def test_the_model_axis_is_not_sharded(self):
+        """Rows shard over ``data`` only: a ``model`` axis replicates them,
+        whatever the axes' order."""
         from cadence_rag_tpu_torch.parallel.sharded import data_shards
 
-        with pytest.raises(ValueError, match="item 7's half of item 6"):
-            data_shards(make_mesh("data:4,model:2", CPU8))
+        assert data_shards(make_mesh("data:4,model:2", CPU8)) == 4
+        assert data_shards(make_mesh("model:2,data:4", CPU8)) == 4
+        assert data_shards(make_mesh("model:8", CPU8)) == 1
 
 
 class TestShardedTopk:

@@ -52,7 +52,7 @@ UNPORTED_SETTINGS = [
       "reranker_params_path": TWO_REGISTER}, "RERANK_PROVIDER=neural_raw", "item 6"),
     ({"dist_coordinator": "localhost:1234"}, "DIST_COORDINATOR", "item 7"),
     ({"mesh_shape": "data:4"}, "MESH_SHAPE", "item 7"),
-    ({"mesh_shape": "data:2,model:2"}, "MESH_SHAPE", "item 7's half of item 6"),
+    ({"mesh_shape": "data:2,model:2"}, "MESH_SHAPE", "item 7"),
     ({"profiler_port": 9999}, "PROFILER_PORT", "item 2"),
     ({"embeddings_provider": "neural"}, "EMBEDDINGS_PROVIDER", "item 6"),
     ({"embeddings_provider": "qwen3", "qwen3_preset": "tiny", "embeddings_dim": 32},
@@ -212,8 +212,9 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
     """Startup raises for a setting whose feature is not ported, naming its
     ROADMAP item. Item 6's settings (the in-process embedders and the
     cross-encoder) are ported: startup takes them, and the engine serves
-    with them on the device startup named. Item 7's index half is ported:
-    ``MESH_SHAPE=data:4`` starts and serves from four shards on the CPU, and
+    with them on the device startup named. Item 7 is ported:
+    ``MESH_SHAPE=data:4`` starts and serves from four shards on the CPU,
+    ``data:2,model:2`` from two shards replicated over the model axis, and
     ``DIST_COORDINATOR`` alone raises for the gang's size it lacks."""
     from cadence_rag_tpu_torch.models.embedder import NeuralEmbeddingProvider
     from cadence_rag_tpu_torch.models.qwen3 import Qwen3EmbeddingProvider
@@ -241,7 +242,10 @@ def test_startup_raises_for_unported_settings(port_store, monkeypatch, values, w
     if item == "item 7":
         PORT.index.reset_index()
         startup("cpu")
-        assert PORT.index.get_index().mesh.shape == {"data": 4}
+        index = PORT.index.get_index()
+        assert index.mesh.shape == {name: int(size) for name, size in (
+            p.split(":") for p in values["mesh_shape"].split(","))}
+        assert index.chunks.n_shards == index.mesh.shape["data"]
         ingest_corpus(PORT)
         resp = PORT.retrieve.retrieve_evidence(
             PORT.request({"query": "ECONNRESET object store errors"}))
@@ -354,17 +358,21 @@ def test_entry_points_default_to_the_card(port_store, monkeypatch):
     assert PORT.index._index is None
 
 
-@pytest.mark.parametrize("shape", ["data:2", "data:8"])
+@pytest.mark.parametrize("shape", ["data:2", "data:8", "data:2,model:2"])
 def test_diagnostics_name_the_mesh_as_the_jax_package_does(port_store, set_both,
                                                           monkeypatch, shape):
     """``index.mesh``: null unsharded (above), the index's axis sizes under
-    ``MESH_SHAPE`` in both packages (the JAX package's mesh over as many of
-    the test process's eight CPU devices as the shape names)."""
+    ``MESH_SHAPE`` in both packages, every axis named (the JAX package's
+    mesh over as many of the test process's eight CPU devices as the shape
+    names)."""
+    import math
+
     import jax
 
     from cadence_rag_tpu.parallel import mesh as jax_mesh
 
-    size = int(shape.split(":")[1])
+    axes = {name: int(n) for name, n in (p.split(":") for p in shape.split(","))}
+    size = math.prod(axes.values())
     real = jax_mesh.make_mesh
     monkeypatch.setattr(jax_mesh, "make_mesh",
                         lambda spec=None, devices=None: real(spec, jax.devices()[:size]))
@@ -375,7 +383,7 @@ def test_diagnostics_name_the_mesh_as_the_jax_package_does(port_store, set_both,
     clients = {JAX.root: JAX.testing.TestClient(),
                PORT.root: PORT.testing.TestClient(device="cpu")}
     port, jax = _both(clients, "GET", "/diagnostics")
-    assert port.json()["index"]["mesh"] == jax.json()["index"]["mesh"] == {"data": size}
+    assert port.json()["index"]["mesh"] == jax.json()["index"]["mesh"] == axes
 
 
 def test_profiler_port_serves_a_trace_of_what_is_served(seeded, clients, monkeypatch):
