@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -180,6 +181,24 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+@functools.lru_cache(maxsize=None)
+def _readback_stream(device: torch.device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device)
+
+
+def _read_back(tensors: Sequence[torch.Tensor], done) -> List[torch.Tensor]:
+    """Blocking D2H copies of ``tensors`` requested now, the collect-time
+    readback of ``READBACK_PREFETCH_ENABLED=0``: on a stream of their own
+    that waits for ``done`` (the dispatch's event) only, so they do not
+    queue behind programs dispatched after these tensors' own."""
+    stream = _readback_stream(tensors[0].device)
+    stream.wait_event(done)
+    with torch.cuda.stream(stream):
+        hosts = [_to_pinned(t) for t in tensors]
+    stream.synchronize()
+    return hosts
 
 
 @dataclasses.dataclass
@@ -1952,6 +1971,9 @@ class PackedDispatch:
     path (one corpus still empty)."""
 
     flat_host: Optional[torch.Tensor] = None
+    # the program's output itself, kept until collect when the readback is
+    # not prefetched (READBACK_PREFETCH_ENABLED off); flat_host is then None
+    flat_out: Optional[torch.Tensor] = None
     done: Optional[object] = None       # torch.cuda.Event or None
     sig: Optional[QuerySignature] = None
     served_chunk_mode: Optional[str] = None
@@ -2125,6 +2147,29 @@ class DeviceIndexManager:
             return (self.chunks.postprocess_lanes(host(chunks_raw), batch),
                     self.artifacts.postprocess_lanes(host(artifacts_raw), batch))
 
+    def query_both_packed(
+        self,
+        q_emb: Optional[np.ndarray],          # (B, dim) f32 or None
+        q_lex_feats: Sequence,                # per-plan (buckets, signs, tfs)
+        q_tech: np.ndarray,
+        allowed_calls: np.ndarray,
+        date_min: np.ndarray,
+        date_max: np.ndarray,
+        *,
+        chunk_ks: Tuple[int, int, int],
+        artifact_ks: Tuple[int, int, int],
+        chunk_mode: str,
+        artifact_mode: str,
+        recall_target: float,
+    ) -> Tuple[Dict, Dict]:
+        """The /retrieve hot path, blocking form: dispatch + collect."""
+        return self.collect_packed(self.query_both_packed_async(
+            q_emb, q_lex_feats, q_tech, allowed_calls, date_min, date_max,
+            chunk_ks=chunk_ks, artifact_ks=artifact_ks,
+            chunk_mode=chunk_mode, artifact_mode=artifact_mode,
+            recall_target=recall_target,
+        ))
+
     def query_both_packed_async(
         self,
         q_emb: Optional[np.ndarray],          # (B, dim) f32 or None
@@ -2143,8 +2188,9 @@ class DeviceIndexManager:
     ) -> PackedDispatch:
         """ONE packed H2D buffer and one device program for all six lanes,
         returning without waiting for the device: the flat output's D2H
-        copy is enqueued into pinned memory behind the program, and
-        ``collect_packed`` waits for it. A chunks ``"ivf"`` plan runs the
+        copy is enqueued into pinned memory behind the program (with
+        ``READBACK_PREFETCH_ENABLED`` off, ``collect_packed`` requests it),
+        and ``collect_packed`` waits for it. A chunks ``"ivf"`` plan runs the
         dense lane from the IVF index in a second dispatch and turns
         ``fuse_rrf`` off. ``recall_target`` is accepted as the JAX index's
         callers pass it; the port's ann lane is K1's fixed candidate
@@ -2242,18 +2288,25 @@ class DeviceIndexManager:
                     _densify(q["ab"], q["av"], self.artifacts.lex_dim),
                     q["tech"], q["allowed"], q["dmin"], q["dmax"],
                     chunk_ks, artifact_ks, chunk_mode, artifact_mode)
-        done = None
-        if flat.is_cuda:
+        # READBACK_PREFETCH_ENABLED: the readback rides behind the program
+        # from here (on CUDA the pinned D2H copies); off, the dispatch keeps
+        # the program's output and ``collect_packed`` requests the readback
+        flat_host = flat_out = None
+        if not settings.readback_prefetch_enabled:
+            flat_out = flat
+        elif flat.is_cuda:
             flat_host = _to_pinned(flat)
             if ivf_dense is not None:
                 ivf_dense = tuple(_to_pinned(t) for t in ivf_dense)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(flat.device))
         else:
             flat_host = flat
+        done = None
+        if flat.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(flat.device))
         self.prewarmer.note_batch(batch)
         return PackedDispatch(
-            flat_host=flat_host, done=done, sig=sig,
+            flat_host=flat_host, flat_out=flat_out, done=done, sig=sig,
             served_chunk_mode="ivf" if chunk_mode == "none" else chunk_mode,
             extra_dense=ivf_dense, chunk_snap=chunk_snap,
             artifact_snap=artifact_snap, batch=batch,
@@ -2348,7 +2401,17 @@ class DeviceIndexManager:
         block}; otherwise as per-lane rectangular blocks."""
         if disp.ready is not None:
             return disp.ready
-        if disp.done is not None:
+        if disp.flat_out is not None:
+            # dispatched with READBACK_PREFETCH_ENABLED off: the readback
+            # is requested here, as the JAX package's collect requests it
+            flat, disp.flat_out = disp.flat_out, None
+            if flat.is_cuda:
+                extra = list(disp.extra_dense or ())
+                flat, *extra = _read_back([flat] + extra, disp.done)
+                if disp.extra_dense is not None:
+                    disp.extra_dense = tuple(extra)
+            disp.flat_host = flat
+        elif disp.done is not None:
             disp.done.synchronize()
         flat_np = disp.flat_host.numpy()
         sig = disp.sig
