@@ -1,0 +1,9 @@
+"""``device.idle_share``: the share of the traced window in which no
+operation ran on the card, 100 x (1 - busy / window)."""
+
+
+def read(ctx):
+    trace = ctx.get("trace")
+    if not trace or trace["window_s"] <= 0 or trace["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
