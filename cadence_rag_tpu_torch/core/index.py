@@ -1987,6 +1987,11 @@ class PackedDispatch:
     cold_chunks: list = dataclasses.field(default_factory=list)
     cold_artifacts: list = dataclasses.field(default_factory=list)
     cold_ks: Optional[Tuple[Tuple[int, int, int], Tuple[int, int, int]]] = None
+    # while the event ring is on, on the single-card packed path: the
+    # fields of the ``index.dispatch`` event that ``collect_packed``
+    # records, and on CUDA the timing event recorded before the upload
+    # (``done`` then times too)
+    trace: Optional[Dict] = None
 
 
 class DeviceIndexManager:
@@ -2225,6 +2230,15 @@ class DeviceIndexManager:
             q_lex_feats, self.artifacts.doc_freq, self.artifacts.live_count, F)
         packed = pack_queries(q_emb, chunk_sparse, artifact_sparse, q_tech,
                               allowed_calls, date_min, date_max)
+        trace = None
+        if events.enabled() and self.mesh is None:
+            trace = dict(batch=batch, chunk_mode=chunk_mode,
+                         artifact_mode=artifact_mode, dense=dense_enabled,
+                         width=int(q_tech.shape[1]),
+                         nonzero=int(np.count_nonzero(q_tech)))
+            if self.device.type == "cuda":
+                trace["start"] = torch.cuda.Event(enable_timing=True)
+                trace["start"].record(torch.cuda.current_stream(self.device))
         # uploads that reference no corpus buffer are staged outside the
         # locks: the packed batch, and the IVF dispatch's inputs
         d_packed = _stage(packed, self.device)
@@ -2302,10 +2316,10 @@ class DeviceIndexManager:
             flat_host = flat
         done = None
         if flat.is_cuda:
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(enable_timing=trace is not None)
             done.record(torch.cuda.current_stream(flat.device))
         self.prewarmer.note_batch(batch)
-        return PackedDispatch(
+        return PackedDispatch(trace=trace,
             flat_host=flat_host, flat_out=flat_out, done=done, sig=sig,
             served_chunk_mode="ivf" if chunk_mode == "none" else chunk_mode,
             extra_dense=ivf_dense, chunk_snap=chunk_snap,
@@ -2401,6 +2415,8 @@ class DeviceIndexManager:
         block}; otherwise as per-lane rectangular blocks."""
         if disp.ready is not None:
             return disp.ready
+        if disp.trace is not None:
+            w0 = time.perf_counter()
         if disp.flat_out is not None:
             # dispatched with READBACK_PREFETCH_ENABLED off: the readback
             # is requested here, as the JAX package's collect requests it
@@ -2413,6 +2429,8 @@ class DeviceIndexManager:
             disp.flat_host = flat
         elif disp.done is not None:
             disp.done.synchronize()
+        if disp.trace is not None:
+            _record_dispatch(disp, time.perf_counter() - w0)
         flat_np = disp.flat_host.numpy()
         sig = disp.sig
         layout = dict(
@@ -2442,6 +2460,20 @@ class DeviceIndexManager:
                                      disp.cold_artifacts, *disp.cold_ks,
                                      disp.batch)
         return rects
+
+
+def _record_dispatch(disp: PackedDispatch, wait_s: float) -> None:
+    """The ring's ``index.dispatch`` event of a dispatch whose output is
+    on the host: ``wait_s``, the seconds ``collect_packed`` blocked for
+    it; on CUDA ``device_s``, the stream's seconds from before the packed
+    batch's upload to the readback (the program, and any wait in it for
+    the host to enqueue the rest); the dispatch's batch, plan modes, dense
+    flag, tech width and nonzero tech columns."""
+    fields = dict(disp.trace)
+    start = fields.pop("start", None)
+    if start is not None:
+        fields["device_s"] = round(start.elapsed_time(disp.done) / 1e3, 6)
+    events.record("index.dispatch", wait_s=round(wait_s, 6), **fields)
 
 
 def _dense_query_vector(feats, corpus: CorpusIndex) -> np.ndarray:

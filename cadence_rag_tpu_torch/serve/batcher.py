@@ -12,12 +12,14 @@ into device-batched execution (SURVEY.md §2.4).
 from __future__ import annotations
 
 import asyncio
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..config import settings
 from ..logging_utils import get_logger
 from ..schemas import RetrieveRequest
+from ..utils import events
 
 logger = get_logger(__name__)
 
@@ -31,6 +33,8 @@ logger = get_logger(__name__)
 # concurrent threads, which would contend for the interpreter lock.
 _ENGINE = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine")
 
+_Pending = Tuple[RetrieveRequest, asyncio.Future, Optional[float]]
+
 
 class RetrieveBatcher:
     # max_batch 128, the JAX package's: the scan streams the same HBM
@@ -42,16 +46,21 @@ class RetrieveBatcher:
             else float(settings.retrieve_batch_window_ms)
         ) / 1e3
         self.max_batch = max_batch
-        self._pending: List[Tuple[RetrieveRequest, asyncio.Future]] = []
+        # (request, its future, its arrival on the event ring's clock, or
+        # None while the ring is off)
+        self._pending: List[_Pending] = []
         self._flusher: Optional[asyncio.Task] = None
         self._lock = asyncio.Lock()
+        # the collector's seconds (utils/events.gc_seconds) at the last batch
+        self._gc_seen = events.gc_seconds()
 
     async def submit(self, payload: RetrieveRequest) -> Dict[str, Any]:
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
-        batch: Optional[List[Tuple[RetrieveRequest, asyncio.Future]]] = None
+        arrival = time.monotonic() if events.enabled() else None
+        batch: Optional[List[_Pending]] = None
         async with self._lock:
-            self._pending.append((payload, future))
+            self._pending.append((payload, future, arrival))
             if len(self._pending) >= self.max_batch:
                 batch, self._pending = self._pending, []
             elif self._flusher is None or self._flusher.done():
@@ -79,19 +88,34 @@ class RetrieveBatcher:
                                   or self._flusher is asyncio.current_task()):
                 self._flusher = asyncio.create_task(self._delayed_flush())
 
-    async def _dispatch(
-        self, batch: List[Tuple[RetrieveRequest, asyncio.Future]]
-    ) -> None:
+    def _record_batch(self, batch: List[_Pending]) -> None:
+        """One ``batcher.batch`` event as the engine thread starts the
+        batch: its size, the seconds its requests waited for that from
+        their arrival (the window, then the engine thread behind the
+        other batch), summed, and the collector's seconds since the last
+        batch."""
+        start = time.monotonic()
+        gc_s = events.gc_seconds()
+        events.record(
+            "batcher.batch", size=len(batch),
+            queue_s=round(sum(start - arrival for _, _, arrival in batch
+                              if arrival is not None), 6),
+            gc_s=round(gc_s - self._gc_seen, 6))
+        self._gc_seen = gc_s
+
+    async def _dispatch(self, batch: List[_Pending]) -> None:
         # The lock is NOT held here: requests arriving while this batch is
         # on device accumulate into the NEXT window batch instead of
         # serializing behind the dispatch (index locking is handled at the
         # engine layer, so overlapping dispatches are safe).
         if not batch:
             return
-        payloads = [payload for payload, _ in batch]
+        payloads = [payload for payload, _, _ in batch]
         loop = asyncio.get_running_loop()
 
         def stage_dispatch():
+            if events.enabled():
+                self._record_batch(batch)
             from ..engine.retrieve import dispatch_evidence_batch
 
             return dispatch_evidence_batch(payloads)
@@ -117,13 +141,13 @@ class RetrieveBatcher:
                 exc if isinstance(exc, Exception)
                 else RuntimeError("retrieve batch dispatch cancelled")
             )
-            for _, future in batch:
+            for _, future, _ in batch:
                 if not future.done():
                     future.set_exception(fan)
             if not isinstance(exc, Exception):
                 raise
             return
-        for (_, future), response in zip(batch, responses):
+        for (_, future, _), response in zip(batch, responses):
             if not future.done():
                 future.set_result(response)
         if len(batch) > 1:

@@ -18,8 +18,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import time
 from typing import Any
 
+from ..utils import events
 from .api import build_router, startup
 
 
@@ -43,6 +45,9 @@ def make_app():
     )
 
     async def handle(request: "web.Request") -> "web.Response":
+        # from the handler's start: the /retrieve fast path's latency in
+        # /metrics, and its http.request event's parse time
+        t0 = time.perf_counter()
         body: Any = None
         if request.can_read_body:
             raw = await request.read()
@@ -65,7 +70,6 @@ def make_app():
             and request.method == "POST"
             and request.path == "/retrieve"
         ):
-            import time as _time
             import uuid as _uuid
 
             from ..logging_utils import (
@@ -81,7 +85,6 @@ def make_app():
             )
             rid_headers = {"x-request-id": request_id}
             token = set_request_id(request_id)
-            t0 = _time.perf_counter()
             status = 200
             try:
                 try:
@@ -91,6 +94,9 @@ def make_app():
                     return web.json_response(
                         {"detail": str(exc)}, status=422, headers=rid_headers
                     )
+                tracing = events.enabled()
+                if tracing:
+                    parse_s = time.perf_counter() - t0
                 try:
                     result = await batcher.submit(payload)
                 except ApiError as exc:
@@ -108,10 +114,19 @@ def make_app():
                         {"detail": "internal error"}, status=500,
                         headers=rid_headers,
                     )
-                return web.json_response(result, headers=rid_headers)
+                if not tracing:
+                    return web.json_response(result, headers=rid_headers)
+                t1 = time.perf_counter()
+                response = web.json_response(result, headers=rid_headers)
+                # one event a request: the host work on the serve thread
+                # before the batcher and after the answer (the wait between
+                # is the batcher's and the engine's)
+                events.record("http.request", parse_s=round(parse_s, 6),
+                              respond_s=round(time.perf_counter() - t1, 6))
+                return response
             finally:
                 registry.observe(
-                    "POST /retrieve", _time.perf_counter() - t0,
+                    "POST /retrieve", time.perf_counter() - t0,
                     error=status >= 500,
                 )
                 reset_request_id(token)
