@@ -84,6 +84,7 @@ import torch
 from ..config import settings
 from ..device import DeviceLike, resolve_device
 from ..ops.fused import _lanes_one_corpus, dual_corpus_retrieve
+from ..ops import fused_scan
 from ..ops.hashing import query_vector_from_features
 from ..ops.ivf import build_buckets, ivf_topk, kmeans
 from ..ops.masks import filter_mask
@@ -2272,6 +2273,7 @@ class DeviceIndexManager:
                 chunk_mode=chunk_mode, artifact_mode=artifact_mode,
                 dense_enabled=dense_enabled, fuse_rrf=sig.fuse_rrf,
             )
+            k1_counts = None
             if self.mesh is not None:
                 if _oplog is not None:
                     _oplog.emit("query_packed",
@@ -2280,6 +2282,10 @@ class DeviceIndexManager:
                 flat = sharded_mod.packed_query(
                     self.chunks, self.artifacts, d_packed, **statics)
             else:
+                if trace is not None and self.device.type == "cuda":
+                    # K1's own counts, copied in stream order around the
+                    # program (and the cold tier's scans), under the locks
+                    k1_counts = fused_scan.counters(self.device).clone()
                 flat = dual_corpus_retrieve_packed(
                     self.chunks.device_arrays(), self.artifacts.device_arrays(),
                     d_packed, **statics)
@@ -2302,6 +2308,9 @@ class DeviceIndexManager:
                     _densify(q["ab"], q["av"], self.artifacts.lex_dim),
                     q["tech"], q["allowed"], q["dmin"], q["dmax"],
                     chunk_ks, artifact_ks, chunk_mode, artifact_mode)
+            if k1_counts is not None:
+                trace["k1_counts"] = _to_pinned(torch.stack(
+                    [k1_counts, fused_scan.counters(self.device)]))
         # READBACK_PREFETCH_ENABLED: the readback rides behind the program
         # from here (on CUDA the pinned D2H copies); off, the dispatch keeps
         # the program's output and ``collect_packed`` requests the readback
@@ -2468,11 +2477,21 @@ def _record_dispatch(disp: PackedDispatch, wait_s: float) -> None:
     it; on CUDA ``device_s``, the stream's seconds from before the packed
     batch's upload to the readback (the program, and any wait in it for
     the host to enqueue the rest); the dispatch's batch, plan modes, dense
-    flag, tech width and nonzero tech columns."""
+    flag, tech width and nonzero tech columns; on CUDA K1's own count of the
+    lexical pieces it issued a K slab over the program's launches
+    (``lex_pieces``) and their route (``lex_route``: ``fp16``, ``bf16`` or
+    ``mixed``), read with the dispatch's readback."""
     fields = dict(disp.trace)
     start = fields.pop("start", None)
     if start is not None:
         fields["device_s"] = round(start.elapsed_time(disp.done) / 1e3, 6)
+    k1_counts = fields.pop("k1_counts", None)
+    if k1_counts is not None:
+        before, after = k1_counts.tolist()
+        bf16, fp16, pieces, slabs = (a - b for a, b in zip(after, before))
+        if slabs:
+            fields["lex_pieces"] = pieces / slabs
+            fields["lex_route"] = "mixed" if bf16 and fp16 else "bf16" if bf16 else "fp16"
     events.record("index.dispatch", wait_s=round(wait_s, 6), **fields)
 
 

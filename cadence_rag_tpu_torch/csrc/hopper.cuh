@@ -9,6 +9,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,9 +61,10 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) 
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-// arrive on `bar` once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+// hold `bar`'s phase until this thread's earlier cp.async copies have
+// landed, without counting as one of its arrivals
+__device__ __forceinline__ void cp_async_hold(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 // a 3-d TMA box global -> shared, completion counted in bytes on `bar`
@@ -72,6 +74,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+
+// a 4-d TMA box global -> shared, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(bar)
       : "memory");
 }
@@ -119,81 +132,64 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          | (static_cast<uint64_t>(1) << 62);
 }
 
-// D(64 x N, f32) (+)= A(64 x 16, bf16 registers) * B(16 x N, bf16 shared,
-// K-major); scale_d == 0 overwrites D. One overload per N (64, 128, 256).
+// The accumulator operands of one wgmma: CK_DREGS_n the placeholders of
+// operands [n, n + 32), CK_Dn(i) the f32 outputs d[i .. i + n).
+#define CK_DREGS_0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define CK_DREGS_32 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define CK_DREGS_64 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define CK_DREGS_96 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define CK_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define CK_D32(i) CK_D8(i), CK_D8(i + 8), CK_D8(i + 16), CK_D8(i + 24)
+#define CK_D64(i) CK_D32(i), CK_D32(i + 32)
+#define CK_D128(i) CK_D64(i), CK_D64(i + 64)
+
+// D(64 x N, f32) (+)= A(64 x 16, registers) * B(16 x N, shared, K-major), A
+// and B both of type TY ("bf16" or "f16"); scale_d == 0 overwrites D. AB
+// names the operands of A's registers and B's descriptor, SCALE scale_d's.
+#define CK_WGMMA_RS(N, TY, DREGS, AB, SCALE, DOPS)                                   \
+  asm volatile("{\n.reg .pred p;\n"                                                   \
+               "setp.ne.b32 p, " SCALE ", 0;\n"                                       \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "         \
+               "{" DREGS "}, " AB ", p, 1, 1, 0;\n}\n"                                 \
+               : DOPS                                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)  \
+               : "memory")
+
+// the register-A product in bf16, or with kF16 in fp16. One overload per N
+// (64, 128, 256).
+template <bool kF16 = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
-      : "memory");
+  if constexpr (kF16) {
+    CK_WGMMA_RS(64, "f16", CK_DREGS_0, "{%32, %33, %34, %35}, %36", "%37", CK_D32(0));
+  } else {
+    CK_WGMMA_RS(64, "bf16", CK_DREGS_0, "{%32, %33, %34, %35}, %36", "%37", CK_D32(0));
+  }
 }
 
+template <bool kF16 = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
-      : "memory");
+  if constexpr (kF16) {
+    CK_WGMMA_RS(128, "f16", CK_DREGS_0 ", " CK_DREGS_32, "{%64, %65, %66, %67}, %68",
+                "%69", CK_D64(0));
+  } else {
+    CK_WGMMA_RS(128, "bf16", CK_DREGS_0 ", " CK_DREGS_32, "{%64, %65, %66, %67}, %68",
+                "%69", CK_D64(0));
+  }
 }
 
+template <bool kF16 = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
-      : "memory");
+  if constexpr (kF16) {
+    CK_WGMMA_RS(256, "f16", CK_DREGS_0 ", " CK_DREGS_32 ", " CK_DREGS_64 ", " CK_DREGS_96,
+                "{%128, %129, %130, %131}, %132", "%133", CK_D128(0));
+  } else {
+    CK_WGMMA_RS(256, "bf16", CK_DREGS_0 ", " CK_DREGS_32 ", " CK_DREGS_64 ", " CK_DREGS_96,
+                "{%128, %129, %130, %131}, %132", "%133", CK_D128(0));
+  }
 }
 
 // D(64 x N, f32) (+)= A(64 x 16, bf16 shared, K-major) * B(16 x N, bf16
@@ -267,18 +263,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (pieces, batch, k_dim) bf16 queries; box (32 K, n_box queries, pieces),
-// 64-byte swizzle, queries past batch read as zeros
+// (pieces, batch, k_dim) 16-bit queries (`type` bf16 or fp16); box (32 K,
+// n_box queries, one piece), 64-byte swizzle, queries past batch read as
+// zeros
 bool encode_queries(CUtensorMap* map, const void* q, int pieces, int batch, int k_dim,
-                    int n_box) {
+                    int n_box, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_dim), static_cast<cuuint64_t>(batch),
                               static_cast<cuuint64_t>(pieces)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k_dim) * 2,
                                  static_cast<cuuint64_t>(batch) * k_dim * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kKS), static_cast<cuuint32_t>(n_box),
-                             static_cast<cuuint32_t>(pieces)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kKS), static_cast<cuuint32_t>(n_box), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(q),
+  return encode_tiled()(map, type, 3, const_cast<void*>(q),
                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -135,9 +135,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ck_error_string.restype = ctypes.c_char_p
     lib.ck_error_string.argtypes = [i32]
+    lib.ck_fused_scan_tile.restype = i32
+    lib.ck_fused_scan_tile.argtypes = [i32]
+    lib.ck_fused_scan_work_bytes.restype = i64
+    lib.ck_fused_scan_work_bytes.argtypes = [i32, i32, i32, i32]
     lib.ck_fused_scan.restype = i32
     lib.ck_fused_scan.argtypes = [
-        p, p, p, i32, p,            # q_emb, q_lex pieces, emb, emb_is_int8, lex
+        p, p, p, i64, p,            # q_emb f32, q_lex f32, work, work bytes, counters
+        p, i32, p,                  # emb, emb_is_int8, lex
         p, i64, p,                  # mask, mask row pitch, has_emb
         i64, i32, i32, i32, i32,    # n, batch, dim, lex_dim, do_dense
         p, p, p, p, i64,            # d_vals, d_idx, l_vals, l_idx, n_cand

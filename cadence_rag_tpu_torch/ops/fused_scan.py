@@ -16,10 +16,18 @@ query stays f32 against int8 values.
 ``fused_scan`` launches the kernel for CUDA tensors and runs
 ``fused_scan_plain`` — the definition of the candidates, ragged last block
 included — only for CPU tensors. ``fused_scan.launches`` counts kernel
-launches. Before the launch the wrapper rounds the dense query to bf16,
-splits the f32 lexical query into three bf16 pieces (``split_query``), the
-operands of the kernel's bf16 tensor-core products, and stores both in the
-kernel's K order (``kernel_order``).
+launches; ``route_counts`` reads the kernel's own count, on the card, of
+its launches by route and the lexical pieces it issued. Both queries go to
+the card in f32 as they are: a small kernel ahead of the scan rounds the
+dense query to bf16 and splits the lexical query into three 16-bit pieces
+(``split_query``), the operands of the tensor-core products, in fp16 where
+they rebuild the query (``fp16_route``; the served query, sums of f16
+weights) and else in bf16, each in the scan's K order; and it notes per
+query tile (``query_tile``) and 32-wide K slab whether the residual pieces
+are nonzero (``slab_masks``): the scan issues them only there
+(``issued_pieces``). The route is decided on the card, so the launch never
+waits for it. The tile and the scratch the launch needs are the C side's
+(``ck_fused_scan_tile``, ``ck_fused_scan_work_bytes``).
 """
 
 from __future__ import annotations
@@ -108,41 +116,96 @@ def fused_scan_plain(
             torch.cat([p[1] for p in d_parts], dim=1), l_vals, l_idx)
 
 
-def split_query(q: torch.Tensor) -> torch.Tensor:
-    """(B, K) f32 -> (3, B, K) bf16 pieces h, m, l with h = bf16(q),
-    m = bf16(q - h), l = bf16(q - h - m). Both differences are exact in f32,
-    so h + m + l rebuilds q within ~2^-27 |q|, and each piece times an int8
-    value is exact in the kernel's f32 accumulation."""
+# the bound on each element that three pieces must rebuild the query within
+SPLIT_REL = 2.0 ** -24
+# K1's lexical slab: the K width of one stage, over which it issues a piece
+_SLAB = 32
+
+
+def query_tile(batch: int) -> int:
+    """The queries one K1 CTA covers for ``batch`` (64, 128 or 256), as the
+    kernel's launcher chooses it (loads the CUDA library)."""
+    return build.load().ck_fused_scan_tile(batch)
+
+
+def split_query(q: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(B, K) f32 -> (3, B, K) pieces h, m, l of ``dtype`` (bf16 or fp16)
+    with h = rn(q), m = rn(q - h), l = rn(q - h - m). Both differences are
+    exact in f32, and each piece times an int8 value is exact in the
+    kernel's f32 accumulation. In bf16 the pieces rebuild q within ~2^-27
+    |q|; in fp16 they rebuild a sum of f16 values exactly, short of fp16's
+    range, and other queries may fall short (``fp16_route``)."""
     q = q.float()
-    h = q.to(torch.bfloat16)
+    h = q.to(dtype)
     r = q - h.float()
-    m = r.to(torch.bfloat16)
-    low = (r - m.float()).to(torch.bfloat16)
+    m = r.to(dtype)
+    low = (r - m.float()).to(dtype)
     return torch.stack([h, m, low]).contiguous()
 
 
-# Each 32-wide K slab of the kernel's queries holds, at logical column
-# 16s + 2c + b + 8h, element 8c + 4s + 2h + b of the slab: the wgmma A
-# fragment of a thread with c = lane % 4 then covers elements [8c, 8c + 8)
-# of a staged row, both 16-wide K steps in one load (csrc/fused_scan.cu).
-_SLAB = 32
-_SLAB_ORDER = [8 * ((col % 8) // 2) + 4 * s + 2 * (col // 8) + col % 2
-               for s in range(2) for col in range(16)]
+def fp16_route(q: torch.Tensor) -> torch.Tensor:
+    """Whether K1 multiplies the (B, K) f32 query as fp16 pieces: they
+    rebuild every element within SPLIT_REL |q| and h is finite. A 0-d bool
+    tensor on q's device (reading it waits for the device)."""
+    q = q.float()
+    h, m, low = split_query(q, torch.float16).float()
+    short = ((q - h) - m) - low
+    return torch.isfinite(h).all() & (short.abs() <= q.abs() * SPLIT_REL).all()
+
+
+def slab_masks(pieces: torch.Tensor, tile: int) -> torch.Tensor:
+    """(3, B, K) pieces -> (2, tiles, K / 32) bool: whether m, and whether
+    l, is nonzero for some query of each query tile of ``tile`` queries
+    (K1's: ``query_tile``) in each 32-wide K slab, the residual pieces K1
+    issues there."""
+    _, batch, k = pieces.shape
+    tiles = -(-batch // tile)
+    rest = pieces[1:] != 0
+    if tiles * tile > batch:
+        rest = torch.cat([rest, rest.new_zeros((2, tiles * tile - batch, k))], dim=1)
+    return rest.view(2, tiles, tile, k // _SLAB, _SLAB).any(4).any(2)
+
+
+def issued_pieces(q: torch.Tensor, tile: int) -> Tuple[str, float]:
+    """K1's route and the lexical pieces it issues a K slab, the mean over
+    its query tiles of ``tile`` queries, for the (B, K) f32 query: what the
+    kernel counts on the card (``counters``; this reads the device)."""
+    f16 = bool(fp16_route(q))
+    masks = slab_masks(split_query(q, torch.float16 if f16 else torch.bfloat16), tile)
+    return ("fp16" if f16 else "bf16"), 1.0 + 2.0 * float(masks.float().mean())
+
+
+COUNTS = ("bf16", "fp16", "pieces", "slabs")
 
 
 @functools.lru_cache(maxsize=None)
-def _slab_order(device: torch.device) -> torch.Tensor:
-    # made once per device: a copy from host memory on every call would
-    # wait for the stream's earlier work
-    return torch.tensor(_SLAB_ORDER, device=device)
+def _counters(device: torch.device) -> torch.Tensor:
+    return torch.zeros(len(COUNTS), dtype=torch.int64, device=device)
 
 
-def kernel_order(q: torch.Tensor) -> torch.Tensor:
-    """(..., K) -> the same values with each 32-wide K slab in the kernel's
-    order; K must be a multiple of 32."""
-    k = q.shape[-1]
-    slabs = q.reshape(*q.shape[:-1], k // _SLAB, _SLAB)
-    return slabs.index_select(-1, _slab_order(q.device)).reshape(q.shape).contiguous()
+def counters(device) -> torch.Tensor:
+    """The kernel's own counts on one card since the process began, int64
+    in the order of COUNTS: its launches on the bf16 and the fp16 route,
+    and the lexical pieces it issued over the K slabs they cover (one count
+    a query tile of each launch). Copy it in stream order to read it
+    without waiting for the device; ``route_counts`` waits."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _counters(dev)
+
+
+def route_counts(device) -> Dict[str, int]:
+    """``counters`` read into a dict (waits for the device)."""
+    return dict(zip(COUNTS, counters(device).tolist()))
+
+
+def _scratch(lib, batch: int, dim: int, lex_dim: int, dense: bool,
+             device: torch.device) -> torch.Tensor:
+    """The launch's scratch (the queries' pieces and the slab bytes), of
+    the size the C side asks for."""
+    return torch.empty(lib.ck_fused_scan_work_bytes(batch, dim, lex_dim, int(dense)),
+                       dtype=torch.uint8, device=device)
 
 
 def _kernel_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -201,17 +264,16 @@ def fused_scan(
         raise ValueError(f"fused_scan: unsupported device {lex.device}")
     q_lex = q_lex.float().contiguous()
     if dense:
-        q_emb = q_emb.to(torch.bfloat16).contiguous()
+        q_emb = q_emb.float().contiguous()
     _check_cuda_inputs(q_emb, q_lex, emb, lex, mask, has_emb, dense)
     lib = build.load()
     n, lex_dim = lex.shape
     batch = q_lex.shape[0]
-    pieces = kernel_order(split_query(q_lex))
-    if dense:
-        q_emb = kernel_order(q_emb)
+    dim = int(emb.shape[1]) if dense else 32
     kmask = _kernel_mask(mask)
     nc = n_candidates(n)
     dev = lex.device
+    work = _scratch(lib, batch, dim, lex_dim, dense, dev)
     l_vals = torch.empty((batch, nc), dtype=torch.float32, device=dev)
     l_idx = torch.empty((batch, nc), dtype=torch.int32, device=dev)
     d_vals = d_idx = None
@@ -219,11 +281,12 @@ def fused_scan(
         d_vals = torch.empty_like(l_vals)
         d_idx = torch.empty_like(l_idx)
     err = lib.ck_fused_scan(
-        q_emb.data_ptr() if dense else None, pieces.data_ptr(),
+        q_emb.data_ptr() if dense else None, q_lex.data_ptr(),
+        work.data_ptr(), work.numel(), counters(dev).data_ptr(),
         emb.data_ptr() if dense else None,
         int(dense and emb.dtype == torch.int8), lex.data_ptr(),
         kmask.data_ptr(), kmask.shape[1], has_emb.data_ptr(),
-        n, batch, int(emb.shape[1]) if dense else 32, lex_dim, int(dense),
+        n, batch, dim, lex_dim, int(dense),
         d_vals.data_ptr() if dense else None,
         d_idx.data_ptr() if dense else None,
         l_vals.data_ptr(), l_idx.data_ptr(), nc,

@@ -339,7 +339,25 @@ def lexical_and_filter_queries(g, device, batch, lex_dim, n_calls):
     return q_lex, allowed, dmin, dmax
 
 
-def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
+def served_lexical_queries(g, device, batch, lex_dim, feats=46):
+    """The served kind of lexical query: ``feats`` signed f16 weights a
+    query (the mean feature count of the msmarco-8m cell's questions)
+    scatter-added in f32 into lex_dim buckets, as ops/pack._densify
+    rebuilds the main path's queries. About a quarter of the queries share
+    a bucket, whose sum may need residual pieces: K1's fp16 route, with m
+    and l issued in those slabs only."""
+    buckets = torch.randint(0, lex_dim, (batch, feats), generator=g, device=device)
+    values = torch.exp(torch.randn((batch, feats), generator=g, device=device) - 1.0)
+    signs = torch.randint(0, 2, (batch, feats), generator=g, device=device) * 2 - 1
+    q = torch.zeros((batch, lex_dim), device=device)
+    q.scatter_add_(1, buckets, (values * signs).half().float())
+    return q
+
+
+def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed, lex="f32"):
+    """K1's inputs at one shape; ``lex`` "f32" takes the f32 lexical query
+    of ``lexical_and_filter_queries`` (off fp16's grid: K1's bf16 route),
+    "served" the served kind (``served_lexical_queries``: the fp16 route)."""
     from cadence_rag_tpu_torch.ops.masks import filter_mask
 
     g = torch.Generator(device=device)
@@ -354,8 +372,8 @@ def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
     q_emb = x[rows] + 0.05 * torch.randn((batch, dim), generator=g, device=device)
     q_emb = q_emb / torch.linalg.vector_norm(q_emb, dim=1, keepdim=True)
     del x
-    lex = torch.randint(-4, 5, (n, lex_dim), generator=g, device=device,
-                        dtype=torch.int8)
+    lex_rows = torch.randint(-4, 5, (n, lex_dim), generator=g, device=device,
+                             dtype=torch.int8)
     # a real filter: half the calls, a date window on odd queries, 1% of
     # rows invalid, 2% of rows without embeddings
     call_idx = torch.randint(0, N_CALLS, (n,), generator=g, device=device,
@@ -365,9 +383,11 @@ def k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed):
     started[torch.rand((n,), generator=g, device=device) < 0.01] = INT32_MIN
     q_lex, allowed, dmin, dmax = lexical_and_filter_queries(
         g, device, batch, lex_dim, N_CALLS)
+    if lex == "served":
+        q_lex = served_lexical_queries(g, device, batch, lex_dim)
     mask = filter_mask(call_idx, started, allowed, dmin, dmax)
     has_emb = torch.rand((n,), generator=g, device=device) > 0.02
-    return q_emb, q_lex, emb, lex, mask, has_emb
+    return q_emb, q_lex, emb, lex_rows, mask, has_emb
 
 
 def row_scores(q, table, scale, b_idx, rows, slab=8192):
@@ -480,30 +500,53 @@ def check_lane(kv, ki, pv, pi, lane, atol, threshold=None, *,
             "top_id_diffs": int((k_pos != p_pos).sum())}
 
 
-def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps, dense=True):
+def k1_route(device, fn):
+    """Run ``fn`` (one K1 launch) -> (its result, {"route", "pieces"}: the
+    route and the lexical pieces a K slab K1 counted on the card for it)."""
+    from cadence_rag_tpu_torch.ops.fused_scan import route_counts
+
+    before = route_counts(device)
+    out = fn()
+    delta = {k: v - before[k] for k, v in route_counts(device).items()}
+    if delta["bf16"] + delta["fp16"] != 1:
+        raise RuntimeError(f"K1 counted {delta} for one launch")
+    return out, {"route": "fp16" if delta["fp16"] else "bf16",
+                 "pieces": delta["pieces"] / delta["slabs"]}
+
+
+def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps, dense=True,
+             lex="f32"):
     """``fused_scan`` against ``fused_scan_plain`` at one shape, both lanes
     (or the lexical lane alone, ``dense`` False, as ``exact`` mode runs
-    it); with ``reps`` > 0 (dense only) also timed."""
+    it), for the lexical query kind ``lex`` (``k1_inputs``: "f32" takes
+    K1's bf16 route, "served" its fp16 route); with ``reps`` > 0 (dense
+    only) also timed. The route and the pieces a K slab K1 counted for the
+    checked launch are returned beside the check."""
     from cadence_rag_tpu_torch.ops.fused_scan import (
         fused_scan, fused_scan_plain, n_candidates,
     )
     from cadence_rag_tpu_torch.ops.lexical import LEX_MATCH_THRESHOLD
 
-    args = k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed)
-    q_emb, q_lex, emb, lex, mask, has_emb = args
-    got = fused_scan(*args, dense=dense)
+    args = k1_inputs(device, n, batch, dim, lex_dim, emb_dtype, seed, lex)
+    q_emb, q_lex, emb, lex_rows, mask, has_emb = args
+    got, issued = k1_route(device, lambda: fused_scan(*args, dense=dense))
+    want_route = "fp16" if lex == "served" else "bf16"
+    if issued["route"] != want_route:
+        raise RuntimeError(f"K1 took the {issued['route']} route for the {lex} "
+                           f"lexical query, not {want_route}")
     torch.cuda.synchronize()
     want = fused_scan_plain(*args, dense=dense)
     nc = n_candidates(n)
     if got[2].shape != (batch, nc) or want[2].shape != (batch, nc):
         raise RuntimeError(f"candidate shape {tuple(got[2].shape)} != {(batch, nc)}")
     lexical = check_lane(
-        got[2], got[3], want[2], want[3], (q_lex.float(), lex, 1.0, mask, n),
+        got[2], got[3], want[2], want[3], (q_lex.float(), lex_rows, 1.0, mask, n),
         LEX_ATOL, LEX_MATCH_THRESHOLD)
     if not dense:
         del got, want, args
         torch.cuda.empty_cache()
         return {"n": n, "batch": batch, "emb_dtype": str(emb_dtype), "dense": None,
+                "lex_query": lex, **issued,
                 "lex": lexical, "max_abs_err": lexical["max_abs_err"]}
     scale = 1.0 / 127.0 if emb_dtype == torch.int8 else 1.0
     dense = check_lane(
@@ -515,19 +558,20 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps, dense=True):
         del args
         torch.cuda.empty_cache()
         return {"n": n, "batch": batch, "emb_dtype": str(emb_dtype), "dense": dense,
-                "lex": lexical,
+                "lex_query": lex, **issued, "lex": lexical,
                 "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"])}
     ms = cuda_ms(lambda: fused_scan(*args, dense=True), reps)
     plain_ms = cuda_ms(lambda: fused_scan_plain(*args, dense=True), 1)
     lex_only_ms = cuda_ms(lambda: fused_scan(*args, dense=False), reps)
-    # useful work; the tensor work with the lexical query's three bf16
-    # pieces counted; the bytes the call must read from device memory
+    # useful work; the tensor work with the lexical pieces K1 issued
+    # counted; the bytes the call must read from device memory
     gflop = 2.0 * batch * n * (dim + lex_dim) / 1e9
-    tensor_gflop = 2.0 * batch * n * (dim + 3 * lex_dim) / 1e9
+    tensor_gflop = 2.0 * batch * n * (dim + issued["pieces"] * lex_dim) / 1e9
     gbytes = (n * (dim * emb.element_size() + lex_dim + 1) + batch * n) / 1e9
     result = {
         "n": n, "batch": batch, "dim": dim, "lex_dim": lex_dim,
-        "emb_dtype": str(emb_dtype), "dense": dense, "lex": lexical,
+        "emb_dtype": str(emb_dtype), "lex_query": lex, **issued,
+        "dense": dense, "lex": lexical,
         "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms, "lex_only_ms": lex_only_ms,
         "tflops": gflop / ms, "tensor_tflops": tensor_gflop / ms,
@@ -539,9 +583,11 @@ def check_k1(device, n, batch, dim, lex_dim, emb_dtype, seed, reps, dense=True):
         "bound_by": ("bytes" if gbytes / HBM_PEAK_GBS * 1e3 >= gflop / BF16_PEAK_TFLOPS
                      else "operations"),
     }
-    log(f"K1 fused_scan n={n} batch={batch} {emb_dtype}: kernel {ms:.3f} ms "
-        f"({gflop / ms:.2f} TFLOP/s useful; {tensor_gflop / ms:.2f} TFLOP/s of "
-        f"bf16 tensor work with the 3-piece split, {result['tensor_share']:.1%} "
+    log(f"K1 fused_scan n={n} batch={batch} {emb_dtype}, {lex} lexical query "
+        f"({issued['route']} route, {issued['pieces']:.3f} lexical pieces a K slab): "
+        f"kernel {ms:.3f} ms (bound {result['bound_ms']:.3f} ms by {result['bound_by']}; "
+        f"{gflop / ms:.2f} TFLOP/s useful; {tensor_gflop / ms:.2f} TFLOP/s of "
+        f"tensor work with the pieces issued, {result['tensor_share']:.1%} "
         f"of {BF16_PEAK_TFLOPS:.0f}; {result['gbs']:.0f} GB/s, "
         f"{result['hbm_share']:.1%} of {HBM_PEAK_GBS:.0f}), lexical-only "
         f"{lex_only_ms:.3f} ms, "
@@ -756,14 +802,17 @@ def check_served_shapes(device, dispatched, corpora, seed):
     """K1 (both lanes in ``ann``, the lexical lane alone in ``exact``) and
     K3 against their plain versions at every served case of
     ``served_cases``, on inputs of each corpus's device shape
-    (``corpora``: {corpus: rows, dim, lex_dim, slots, emb_dtype})."""
+    (``corpora``: {corpus: rows, dim, lex_dim, slots, emb_dtype}); K1 for
+    the served kind of lexical query (its fp16 route) and an f32 one (its
+    bf16 route)."""
     k1_cases, k3_cases = served_cases(dispatched)
     k1, k3 = [], []
     for i, (corpus, dense, batch) in enumerate(k1_cases):
         c = corpora[corpus]
-        got = check_k1(device, c["rows"], batch, c["dim"], c["lex_dim"],
-                       c["emb_dtype"], seed=seed + i, reps=0, dense=dense)
-        k1.append({"corpus": corpus, "dense_lane": dense, **got})
+        for lex in ("served", "f32"):
+            got = check_k1(device, c["rows"], batch, c["dim"], c["lex_dim"],
+                           c["emb_dtype"], seed=seed + i, reps=0, dense=dense, lex=lex)
+            k1.append({"corpus": corpus, "dense_lane": dense, **got})
     for i, (corpus, width, batch) in enumerate(k3_cases):
         c = corpora[corpus]
         args = k3_inputs(device, c["rows"], batch, c["slots"], "smoke",
@@ -775,6 +824,7 @@ def check_served_shapes(device, dispatched, corpora, seed):
     log("served shapes: K1 against its plain version at "
         + ", ".join(f"{r['corpus']} {r['n']} rows batch {r['batch']} "
                     f"{'dense+lexical' if r['dense_lane'] else 'lexical only'} "
+                    f"{r['lex_query']} query ({r['route']}, {r['pieces']:.3f} pieces) "
                     f"(|err| {r['max_abs_err']:.3g})" for r in k1)
         + "; K3 bit-identical at "
         + ", ".join(f"{r['corpus']} {r['n']} rows batch {r['batch']} width "
@@ -1770,8 +1820,10 @@ def check_kernels_on_corpus(corpus, n_calls, batch, seed):
     """K1 (both lanes) and K3 against their plain versions on the corpus's
     own device tensors as they stand (tombstoned rows, a compacted ragged
     count under the capacity), for ``batch`` seeded queries under a real
-    filter. check_lane also proves that no candidate names a row the mask
-    excludes, so no tombstoned row is ever a candidate."""
+    filter; K1 for an f32 lexical query (its bf16 route) and the served kind
+    (``served_lexical_queries``, its fp16 route). check_lane also proves
+    that no candidate names a row the mask excludes, so no tombstoned row
+    is ever a candidate."""
     from cadence_rag_tpu_torch.ops.fused_scan import fused_scan, fused_scan_plain
     from cadence_rag_tpu_torch.ops.lexical import LEX_MATCH_THRESHOLD
     from cadence_rag_tpu_torch.ops.masks import filter_mask
@@ -1791,15 +1843,24 @@ def check_kernels_on_corpus(corpus, n_calls, batch, seed):
     q_lex, allowed, dmin, dmax = lexical_and_filter_queries(
         g, dev, batch, lex.shape[1], n_calls)
     mask = filter_mask(call_idx, started, allowed, dmin, dmax)
-    args = (q_emb, q_lex, emb, lex, mask, has_emb)
-    got = fused_scan(*args, dense=True)
-    want = fused_scan_plain(*args, dense=True)
-    lexical = check_lane(got[2], got[3], want[2], want[3],
-                         (q_lex, lex, 1.0, mask, n), LEX_ATOL, LEX_MATCH_THRESHOLD)
-    dense = check_lane(got[0], got[1], want[0], want[1],
-                       (q_emb.to(torch.bfloat16).float(), emb, scale,
-                        mask & has_emb[None, :], n), DENSE_ATOL)
-    del got, want, args
+    errs, routes = [], {}
+    for kind, q in (("f32", q_lex),
+                    ("served", served_lexical_queries(g, dev, batch, lex.shape[1]))):
+        args = (q_emb, q, emb, lex, mask, has_emb)
+        if dev.type == "cuda":
+            got, routes[kind] = k1_route(dev, lambda: fused_scan(*args, dense=True))
+        else:
+            got = fused_scan(*args, dense=True)
+        want = fused_scan_plain(*args, dense=True)
+        lexical = check_lane(got[2], got[3], want[2], want[3],
+                             (q, lex, 1.0, mask, n), LEX_ATOL, LEX_MATCH_THRESHOLD)
+        dense = check_lane(got[0], got[1], want[0], want[1],
+                           (q_emb.to(torch.bfloat16).float(), emb, scale,
+                            mask & has_emb[None, :], n), DENSE_ATOL)
+        errs += [dense["max_abs_err"], lexical["max_abs_err"]]
+        del got, want, args
+    if routes and (routes["f32"]["route"], routes["served"]["route"]) != ("bf16", "fp16"):
+        raise RuntimeError(f"K1's routes for the f32 and the served query: {routes}")
     q_tech = tech[src].clone()
     q_tech[torch.rand(q_tech.shape, generator=g, device=dev) < 0.5] = 0
     finite = check_k3_case(q_tech, tech, started, mask, min(50, n))
@@ -1807,8 +1868,8 @@ def check_kernels_on_corpus(corpus, n_calls, batch, seed):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"corpus": corpus.name, "rows": n, "count": count, "live": live,
-            "batch": batch, "k3_finite": finite,
-            "max_abs_err": max(dense["max_abs_err"], lexical["max_abs_err"])}
+            "batch": batch, "k3_finite": finite, "k1_routes": routes,
+            "max_abs_err": max(errs)}
 
 
 def run_writes(device, index, workdir, dispatches, known_texts, known_ids,
@@ -4528,6 +4589,16 @@ def trace_kernels(trace):
             for name, needle in KERNEL_NAMES.items()}
 
 
+def trace_launch_records(trace):
+    """(kernel launches the CUDA runtime recorded on the host, kernels the
+    card recorded) in a Chrome trace: launches without a kernel mean the
+    capture lost the card's activity records."""
+    events = trace.get("traceEvents", [])
+    launched = sum(1 for ev in events if ev.get("cat") == "cuda_runtime"
+                   and "LaunchKernel" in str(ev.get("name", "")))
+    return launched, sum(1 for ev in events if ev.get("cat") == "kernel")
+
+
 def fetch_trace(port, ms):
     """One ``GET /trace?ms=`` of the trace listener -> (trace, bytes)."""
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/trace?ms={ms}",
@@ -4665,13 +4736,25 @@ def run_serve_all(device):
 
         thread = threading.Thread(target=serve, daemon=True)
         thread.start()
+        lost = []
         try:
             trace, nbytes = fetch_trace(trace_port, 1000)
+            # a capture whose host side recorded kernel launches but whose
+            # card side recorded no kernel lost the card's activity records
+            # (seen once in each of two whole-script runs, never with the
+            # step alone): it cannot show which kernels served, so the
+            # step takes one more capture, and reports the lost one
+            launched, recorded = trace_launch_records(trace)
+            if device.type == "cuda" and launched and not recorded:
+                lost.append({"launches": launched, "bytes": nbytes})
+                trace, nbytes = fetch_trace(trace_port, 1000)
         finally:
             stop.set()
             thread.join(60)
         out["trace"] = {"kernels": trace_kernels(trace), "bytes": nbytes,
-                        "requests": len(served)}
+                        "requests": len(served),
+                        "launch_records": trace_launch_records(trace),
+                        "lost_captures": lost}
     finally:
         sup.send_signal(signal.SIGTERM)
         try:
@@ -5263,7 +5346,9 @@ def report_harness(device, hv, smi):
         f"/diagnostics device {sa['diagnostics_device']}; the api's PROFILER_PORT trace "
         f"of 1000 ms over {sa['trace']['requests']} requests: K1 "
         f"{sa['trace']['kernels']['fused_scan']}, K3 {sa['trace']['kernels']['tech_topk']} "
-        f"kernel events; SIGTERM -> rc {sa['rc']}, no child alive; step {sa['s']:.1f} s")
+        f"kernel events (runtime launches, card kernels {sa['trace']['launch_records']}; "
+        f"captures that lost the card's records first: {sa['trace']['lost_captures']}); "
+        f"SIGTERM -> rc {sa['rc']}, no child alive; step {sa['s']:.1f} s")
     log("harness steps (wall s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in hv["steps_s"].items())
         + f"; launches {hv['launches']}")
@@ -5444,6 +5529,8 @@ def main(argv=None) -> int:
 
     details["k1"] = check_k1(device, 1_048_576, 128, 1024, 4096,
                              torch.bfloat16, seed=1, reps=5)
+    details["k1_served"] = check_k1(device, 1_048_576, 128, 1024, 4096,
+                                    torch.bfloat16, seed=1, reps=5, lex="served")
     details["k1_ragged_int8"] = check_k1(device, 300_037, 128, 1024, 4096,
                                          torch.int8, seed=2, reps=3)
     details["k3"] = check_k3(device, 1_048_576, 128, 16, seed=3, reps=10)
@@ -5634,7 +5721,8 @@ def main(argv=None) -> int:
         "tensors: " + "; ".join(
             f"{r['corpus']} {r['rows']} rows ({r['live']} live of {r['count']}) "
             f"batch {r['batch']} |err| {r['max_abs_err']:.3g}" for r in on_index))
-    k1_err = max(details["k1"]["max_abs_err"], details["k1_ragged_int8"]["max_abs_err"],
+    k1_err = max(details["k1"]["max_abs_err"], details["k1_served"]["max_abs_err"],
+                 details["k1_ragged_int8"]["max_abs_err"],
                  details["served_shapes"]["k1_max_abs_err"],
                  details["written_shapes"]["k1_max_abs_err"],
                  details["models_shapes"]["k1_max_abs_err"],
@@ -5996,7 +6084,12 @@ def main(argv=None) -> int:
          "launches_by_shard": by_shard("fused_scan"),
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
+         "bound_by": k1["bound_by"], "library_ms": None,
+         # 1,048,576 rows, batch 128: each lexical query kind's route, the
+         # pieces a K slab K1 counted, its time and bound
+         "routes": {kind: {key: details[name][key] for key in (
+             "route", "pieces", "ms", "lex_only_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for kind, name in (("f32", "k1"), ("served", "k1_served"))}},
         {"name": "tech_topk", "route": "cuda",
          "source": "cadence_rag_tpu_torch/csrc/tech_keys.cu",
          "replaces": "cadence_rag_tpu/ops/pallas_tech.py:76",

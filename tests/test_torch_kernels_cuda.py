@@ -1,9 +1,10 @@
 """Kernels K1, K2 and K3 on a CUDA card against their plain versions, at
 the edge shapes their callers can hand them: partial query tiles (batch not
 a multiple of 64 or 16), ragged row blocks, int8 embeddings, the dense half
-off, every K2 block size and batch tile, the tech lane at three match
-densities and every k up to its limit; and the whole packed dispatch on the
-card against the same index on the CPU.
+off, K1's two routes for the lexical query (fp16 and bf16 pieces, residual
+pieces issued in no slab, some or all), every K2 block size and batch tile,
+the tech lane at three match densities and every k up to its limit; and
+the whole packed dispatch on the card against the same index on the CPU.
 
 Needs a card, so every test here carries the ``cuda`` marker and skips
 without one. The machine with the card has no jax, which tests/conftest.py
@@ -33,9 +34,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _k1_inputs(rng, n, dim, d, b, emb_dtype):
+def _k1_inputs(rng, n, dim, d, b, emb_dtype, route="fp16"):
     """Values on a coarse grid: every product and partial sum is exact in
-    f32, so kernel and plain version must agree bit for bit."""
+    f32, so kernel and plain version must agree bit for bit. The lexical
+    query is on fp16's grid (K1's fp16 route) or, for ``route`` "bf16",
+    scaled by 2^17 past fp16's range (the bf16 route; still exact)."""
     if emb_dtype == torch.int8:
         emb = torch.from_numpy(rng.integers(-127, 128, size=(n, dim)).astype(np.int8))
     else:
@@ -45,25 +48,49 @@ def _k1_inputs(rng, n, dim, d, b, emb_dtype):
     q_emb = torch.from_numpy(rng.integers(-64, 65, size=(b, dim)).astype(np.float32) / 64.0)
     lex = torch.from_numpy(rng.integers(-4, 5, size=(n, d)).astype(np.int8))
     q_lex = torch.from_numpy(rng.integers(-8, 9, size=(b, d)).astype(np.float32) / 16.0)
+    if route == "bf16":
+        q_lex[0, 0] = 0.5
+        q_lex *= 2.0 ** 17
     mask = torch.from_numpy(rng.random((b, n)) < 0.8)
     has_emb = torch.from_numpy(rng.random(n) < 0.9)
     return q_emb, q_lex, emb, lex, mask, has_emb
 
 
-def _k1_check(cuda, args, dense):
-    """Kernel vs plain version, bit for bit (grid inputs)."""
-    n, b = args[3].shape[0], args[1].shape[0]
-    want = k1.fused_scan_plain(*args, dense=dense)
+def _k1_launch(cuda, args, dense):
+    """One K1 launch on the card -> (candidates, the kernel's own count of
+    the launch: route and lexical pieces a K slab), held to the count
+    ``issued_pieces`` gives for the lexical query."""
     before = k1.fused_scan.launches
-    got = k1.fused_scan(*(a.to(cuda) for a in args), dense=dense)
+    counted = k1.route_counts(cuda)
+    got = k1.fused_scan(*args, dense=dense)
     torch.cuda.synchronize()
     assert k1.fused_scan.launches == before + 1
+    delta = {k: v - counted[k] for k, v in k1.route_counts(cuda).items()}
+    route = "fp16" if delta["fp16"] else "bf16"
+    assert delta["bf16"] + delta["fp16"] == 1
+    tile = k1.query_tile(args[1].shape[0])
+    assert delta["slabs"] == -(-args[1].shape[0] // tile) * (args[1].shape[1] // 32)
+    issued = (route, delta["pieces"] / delta["slabs"])
+    want_route, want_pieces = k1.issued_pieces(args[1], tile)
+    assert route == want_route and issued[1] == pytest.approx(want_pieces, rel=1e-12)
+    return got, issued
+
+
+def _k1_check(cuda, args, dense, route="fp16"):
+    """Kernel vs plain version, bit for bit (grid inputs), on ``route``."""
+    n, b = args[3].shape[0], args[1].shape[0]
+    want = k1.fused_scan_plain(*args, dense=dense)
+    got, issued = _k1_launch(cuda, [a.to(cuda) for a in args], dense)
+    assert issued[0] == route
     for g, w in zip(got, want):
         if w is None:
             assert g is None
             continue
         assert g.shape == (b, k1.n_candidates(n))
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+ROUTES = ["fp16", "bf16"]
 
 
 @pytest.mark.parametrize("n,b,emb_dtype,dense", [
@@ -74,20 +101,22 @@ def _k1_check(cuda, args, dense):
     (5000, 128, torch.bfloat16, True),
     (9000, 70, torch.bfloat16, True),
 ])
-def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense):
+@pytest.mark.parametrize("route", ROUTES)
+def test_k1_kernel_matches_plain(cuda, n, b, emb_dtype, dense, route):
     rng = np.random.default_rng(n + b)
-    _k1_check(cuda, _k1_inputs(rng, n, 64, 128, b, emb_dtype), dense)
+    _k1_check(cuda, _k1_inputs(rng, n, 64, 128, b, emb_dtype, route), dense, route)
 
 
 @pytest.mark.parametrize("b", [1, 8, 63, 64, 127, 128, 129, 256, 300])
-def test_k1_batch_edges(cuda, b):
+@pytest.mark.parametrize("route", ROUTES)
+def test_k1_batch_edges(cuda, b, route):
     """Every query tile width (64, 128, 256) full and partial, a second
     256-query tile past 256; both embedding types, dense on and off."""
     rng = np.random.default_rng(b)
     emb_dtype = torch.int8 if b % 2 else torch.bfloat16
-    args = _k1_inputs(rng, 2500, 64, 128, b, emb_dtype)
-    _k1_check(cuda, args, dense=True)
-    _k1_check(cuda, args, dense=False)
+    args = _k1_inputs(rng, 2500, 64, 128, b, emb_dtype, route)
+    _k1_check(cuda, args, dense=True, route=route)
+    _k1_check(cuda, args, dense=False, route=route)
 
 
 @pytest.mark.parametrize("n", [127, 128, 1023, 1025])
@@ -101,11 +130,13 @@ def test_k1_row_edges(cuda, n, emb_dtype):
 @pytest.mark.parametrize("emb_dtype,dense", [
     (torch.bfloat16, True), (torch.int8, True), (torch.bfloat16, False),
 ])
-def test_k1_main_path_widths(cuda, emb_dtype, dense):
+@pytest.mark.parametrize("route", ROUTES)
+def test_k1_main_path_widths(cuda, emb_dtype, dense, route):
     """The main path's widths: 1024-d embeddings, 4096-wide signatures.
     Grid sums stay exact in f32 at these widths."""
     rng = np.random.default_rng(1024)
-    _k1_check(cuda, _k1_inputs(rng, 3000, 1024, 4096, 128, emb_dtype), dense)
+    _k1_check(cuda, _k1_inputs(rng, 3000, 1024, 4096, 128, emb_dtype, route), dense,
+              route)
 
 
 @pytest.mark.parametrize("emb_dtype", [torch.bfloat16, torch.int8])
@@ -127,7 +158,8 @@ def test_k1_off_grid_lexical_query(cuda, emb_dtype):
     args = chip_smoke.k1_inputs(cuda, 20_000, 128, 1024, 4096, emb_dtype, seed=7)
     q_emb, q_lex, emb, lex, mask, has_emb = args
     assert not torch.equal(q_lex, q_lex.to(torch.bfloat16).float())
-    got = k1.fused_scan(*args, dense=True)
+    got, (route, pieces) = _k1_launch(cuda, args, dense=True)
+    assert route == "bf16" and pieces > 2.0
     want = k1.fused_scan_plain(*args, dense=True)
     torch.cuda.synchronize()
     scale = 1.0 / 127.0 if emb_dtype == torch.int8 else 1.0
@@ -137,6 +169,156 @@ def test_k1_off_grid_lexical_query(cuda, emb_dtype):
     chip_smoke.check_lane(got[2], got[3], want[2], want[3],
                           (q_lex, lex, 1.0, mask, 20_000), chip_smoke.LEX_ATOL,
                           LEX_MATCH_THRESHOLD)
+
+
+def _served_lex(rng, b, lex_dim, residuals):
+    """Served-kind lexical queries: ~45 signed f16 weights a query
+    scatter-added in f32 (``ops/pack._densify``). ``residuals``: "some"
+    (buckets drawn with repeats, so a few are shared), "none" (no bucket
+    shared: h alone in every slab), or "all" (besides, in every slab of
+    every query tile, one bucket holding the f32 sum of three f16 weights
+    that needs m and l)."""
+    from cadence_rag_tpu_torch.ops.pack import _densify
+
+    feats = 45
+    if residuals == "none":
+        buckets = np.argsort(rng.random((b, lex_dim)), axis=1)[:, :feats]
+    else:
+        buckets = rng.integers(0, lex_dim, size=(b, feats))
+    values = (rng.lognormal(-1.0, 1.0, size=(b, feats))
+              * rng.choice([-1.0, 1.0], size=(b, feats))).astype(np.float16)
+    if residuals == "some":
+        # at least one shared bucket whose sum is not an f16 value
+        buckets[0, 1] = buckets[0, 0]
+        values[0, :2] = (1.0, 2.0 ** -12)
+    q = _densify(torch.from_numpy(buckets), torch.from_numpy(values.astype(np.float32)),
+                 lex_dim)
+    if residuals == "all":
+        tile = k1.query_tile(b)
+        three = np.float32(1.0) + np.float32(0.375 * 2.0 ** -10) + np.float32(1.5 * 2.0 ** -22)
+        for t in range(-(-b // tile)):
+            rows = min(tile, b - t * tile)
+            for slab in range(lex_dim // 32):
+                q[t * tile + slab % rows, 32 * slab + slab % 32] = float(three)
+    masks = k1.slab_masks(k1.split_query(q, torch.float16), k1.query_tile(b))
+    assert bool(k1.fp16_route(q))
+    assert {"none": not bool(masks.any()), "all": bool(masks.all()),
+            "some": bool(masks.any()) and not bool(masks.all())}[residuals]
+    return q
+
+
+@pytest.mark.parametrize("b", [1, 64, 117, 128, 256])
+@pytest.mark.parametrize("emb_dtype,dense", [
+    (torch.bfloat16, True), (torch.int8, True), (torch.bfloat16, False),
+    (torch.int8, False),
+])
+@pytest.mark.parametrize("residuals", ["some", "none", "all"])
+def test_k1_fp16_route_on_served_queries(cuda, b, emb_dtype, dense, residuals):
+    """The served query (sums of f16 weights) takes the fp16 route at the
+    main path's widths; residual pieces in some slabs, none or all: rows
+    as the plain version's but at near-ties (proven by rescoring), values
+    within chip_smoke's tolerances, and the kernel's count of the pieces
+    it issued equal to ``issued_pieces``."""
+    import chip_smoke
+    from cadence_rag_tpu_torch.ops.lexical import LEX_MATCH_THRESHOLD
+
+    n = 20_000
+    rng = np.random.default_rng(b + 7)
+    args = list(chip_smoke.k1_inputs(cuda, n, b, 1024, 4096, emb_dtype, seed=b))
+    args[1] = _served_lex(rng, b, 4096, residuals).to(cuda)
+    q_emb, q_lex, emb, lex, mask, has_emb = args
+    want = k1.fused_scan_plain(*args, dense=dense)
+    got, (route, pieces) = _k1_launch(cuda, args, dense)
+    assert route == "fp16"
+    assert (pieces == 1.0) == (residuals == "none") and (pieces == 3.0) == (residuals == "all")
+    chip_smoke.check_lane(got[2], got[3], want[2], want[3],
+                          (q_lex, lex, 1.0, mask, n), chip_smoke.LEX_ATOL,
+                          LEX_MATCH_THRESHOLD)
+    if dense:
+        scale = 1.0 / 127.0 if emb_dtype == torch.int8 else 1.0
+        chip_smoke.check_lane(got[0], got[1], want[0], want[1],
+                              (q_emb.to(torch.bfloat16).float(), emb, scale,
+                               mask & has_emb[None, :], n), chip_smoke.DENSE_ATOL)
+    else:
+        assert got[0] is None and want[0] is None
+
+
+@pytest.mark.parametrize("b", [1, 64, 65, 117, 128, 129, 256, 300])
+def test_k1_query_tile_is_the_launchers(cuda, b):
+    """The C side's query tile, which sizes the slab bytes, is the one the
+    CPU tests take for ``slab_masks``; the scratch it asks for holds the
+    dense piece, the six lexical pieces and a byte per tile and slab."""
+    from test_torch_fused_split import launch_tile
+
+    tile = k1.query_tile(b)
+    assert tile == launch_tile(b)
+    lib = k1.build.load()
+    slab_bytes = -(-b // tile) * (4096 // 32)
+    assert lib.ck_fused_scan_work_bytes(b, 1024, 4096, 1) == 2 * b * 1024 + 12 * b * 4096 + slab_bytes
+    assert lib.ck_fused_scan_work_bytes(b, 1024, 4096, 0) == 12 * b * 4096 + slab_bytes
+
+
+@pytest.mark.parametrize("b,lex", [(117, "some"), (256, "all"), (300, "f32"), (64, "none")])
+@pytest.mark.parametrize("dense", [True, False])
+def test_k1_split_kernel_writes_pieces_in_kernel_order(cuda, monkeypatch, b, lex, dense):
+    """The split kernel's scratch after a launch: the dense query rounded
+    to bf16, the lexical query's bf16 and fp16 pieces (``split_query``),
+    each 32-wide K slab in the kernel's order (``kernel_order`` of the CPU
+    tests), then per query tile and slab the residual pieces' bits (bf16 m,
+    l; fp16 m, l) as ``slab_masks`` marks them, and the fp16 route's
+    shortfall bit set somewhere exactly off that route."""
+    import chip_smoke
+    from test_torch_fused_split import kernel_order
+
+    args = list(chip_smoke.k1_inputs(cuda, 3000, b, 1024, 4096, torch.bfloat16, seed=b))
+    if lex != "f32":
+        args[1] = _served_lex(np.random.default_rng(b), b, 4096, lex).to(cuda)
+    scratch = []
+    make = k1._scratch
+    monkeypatch.setattr(k1, "_scratch", lambda *a: scratch.append(make(*a)) or scratch[-1])
+    k1.fused_scan(*args, dense=dense)
+    torch.cuda.synchronize()
+    (work,) = scratch
+    q_emb, q_lex = args[0], args[1]
+    at = 0
+    if dense:
+        size = 2 * b * 1024
+        got = work[:size].view(torch.bfloat16).view(b, 1024)
+        assert torch.equal(got, kernel_order(q_emb.float().to(torch.bfloat16)))
+        at = size
+    plane = b * 4096
+    pieces = work[at:at + 12 * plane].view(torch.int16).view(6, b, 4096)
+    tile = k1.query_tile(b)
+    bits = work[at + 12 * plane:].view(-(-b // tile), 4096 // 32).long()
+    want_bits = torch.zeros_like(bits)
+    for i, dtype in enumerate((torch.bfloat16, torch.float16)):
+        split = k1.split_query(q_lex, dtype)
+        assert torch.equal(pieces[3 * i:3 * i + 3], kernel_order(split).view(torch.int16))
+        masks = k1.slab_masks(split, tile).long()
+        want_bits |= (masks[0] | masks[1] << 1) << (2 * i)
+    assert torch.equal(bits & 0xF, want_bits)
+    assert bool((bits & 0x10).any()) == (not bool(k1.fp16_route(q_lex)))
+
+
+def test_k1_launch_waits_for_nothing(cuda):
+    """The wrapper and both kernels' launch under the sync debug mode set
+    to raise: nothing on the launch path reads the device (the route is
+    decided on it)."""
+    import chip_smoke
+
+    args = list(chip_smoke.k1_inputs(cuda, 5000, 117, 1024, 4096, torch.bfloat16, seed=3))
+    args[1] = _served_lex(np.random.default_rng(3), 117, 4096, "some").to(cuda)
+    for dense in (True, False):
+        k1.fused_scan(*args, dense=dense)          # builds, and makes the cached tensors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for dense in (True, False):
+            k1.fused_scan(*args, dense=dense)
+            k1.fused_topk(*args, k_dense=50, k_lex=50, dense=dense)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _k2_inputs(rng, n, dim, b, density=0.8):
@@ -300,6 +482,49 @@ def test_packed_dispatch_card_matches_cpu(cuda, monkeypatch):
                             assert (c == a).mean() > 0.99
             if fuse:
                 chip_smoke.check_first(outs[1], expected, "card")
+
+
+def test_packed_dispatch_records_the_pieces_k1_issued(cuda, monkeypatch):
+    """A traced packed dispatch's ``index.dispatch`` event carries K1's own
+    count of the lexical pieces it issued a K slab over the program's two
+    launches (one a corpus), and their route: ``issued_pieces`` of the
+    sparse rows the dispatch packed, densified."""
+    from cadence_rag_tpu_torch.config import settings
+    from cadence_rag_tpu_torch.core.index import DeviceIndexManager
+    from cadence_rag_tpu_torch.ops.pack import _densify, sparse_lex_rows
+    from cadence_rag_tpu_torch.utils import events
+
+    import chip_smoke
+
+    monkeypatch.setattr(settings, "embeddings_dim", 64)
+    monkeypatch.setattr(settings, "lexical_dim", 256)
+    monkeypatch.setattr(settings, "index_initial_capacity", 256)
+    cpu_index, texts, tokens = chip_smoke.build_index(
+        "cpu", n_chunks=6000, n_artifacts=700, n_known=4)
+    card_index = DeviceIndexManager(cuda)
+    card_index.ensure_call_capacity(cpu_index.call_capacity)
+    for name in ("chunks", "artifact_chunks"):
+        card_index.corpus(name).load_state(cpu_index.corpus(name).state_arrays())
+    args, modes, _ = chip_smoke.plan_batch(cpu_index, texts, tokens, 8, False)
+    events.enable()
+    try:
+        card_index.collect_packed(card_index.query_both_packed_async(
+            *args, chunk_ks=chip_smoke.CHUNK_KS, artifact_ks=chip_smoke.ARTIFACT_KS,
+            chunk_mode=modes[0], artifact_mode=modes[1], recall_target=0.95))
+        (ev,) = [e for e in events.drain() if e["tag"] == "index.dispatch"]
+    finally:
+        events.disable()
+    want = []
+    for corpus in (card_index.chunks, card_index.artifacts):
+        buckets, values = sparse_lex_rows(args[1], corpus.doc_freq, corpus.live_count,
+                                          int(settings.query_lex_features))
+        q = _densify(torch.from_numpy(buckets.astype(np.int64)),
+                     torch.from_numpy(values.astype(np.float32)), corpus.lex_dim)
+        want.append(k1.issued_pieces(q, k1.query_tile(q.shape[0])))
+    routes = {route for route, _ in want}
+    assert ev["lex_route"] == (routes.pop() if len(routes) == 1 else "mixed")
+    assert ev["lex_route"] == "fp16"
+    assert ev["lex_pieces"] == pytest.approx(sum(p for _, p in want) / 2, rel=1e-12)
 
 
 def test_served_fixture_corpus_card_matches_cpu(cuda, tmp_path, monkeypatch):

@@ -175,7 +175,8 @@ def test_with_the_ring_on_each_layer_records_its_events(served):
     keys = ("batch", "chunk_mode", "artifact_mode", "dense", "width", "nonzero")
     for ev, call in zip(recorded, dispatches.calls):
         assert {k: ev[k] for k in keys} == {k: call[k] for k in keys}
-        assert ev["wait_s"] >= 0 and "device_s" not in ev      # no card here
+        # no card here: no device time, and no kernel to count its pieces
+        assert ev["wait_s"] >= 0 and "device_s" not in ev and "lex_pieces" not in ev
 
 
 def test_timed_spans_carry_cpu_time_to_the_microsecond():
@@ -288,9 +289,9 @@ def _window():
               {"t": 101.0, "tag": "batcher.batch", "size": 1, "queue_s": 0.004,
                "gc_s": 0.001}]
     spans += [{"t": 100.0008, "tag": "index.dispatch", "device_s": 0.030,
-               "wait_s": 0.020, "batch": 2},
+               "wait_s": 0.020, "batch": 2, "lex_pieces": 1.25, "lex_route": "fp16"},
               {"t": 101.0008, "tag": "index.dispatch", "device_s": 0.040,
-               "wait_s": 0.010, "batch": 1}]
+               "wait_s": 0.010, "batch": 1, "lex_pieces": 1.0, "lex_route": "fp16"}]
     # kernels at 0.0-0.1 and 0.2-0.4 ms into the window; the engine's spans
     # at 0.4-0.6, 0.5-0.7 and 0.9-1.1 ms (clipped at 1.0): 0.7 ms covered
     kernels = [{"name": "k", "ts": 100e6, "dur": 100.0},
@@ -309,6 +310,7 @@ def _window():
     ("index.device_ms", 35.0),
     ("index.wait_ms", 15.0),
     ("device.idle_waiting_share", 30.0),
+    ("k1.lex_pieces", 1.125),
 ])
 def test_the_new_metric_readers(name, want):
     read = run.reader(ROOT, name)
