@@ -4,14 +4,18 @@
 <s>`` runs the cell (``run.run_cell``, at its full size and load, with a
 window of ``--seconds``) once per seed and prints the program's reading of
 each number compared. For each seed it also reads the control on the same
-sampled queries: the reference computed with the dense lane in int8 (both
-sides rounded to ``round(127 x)``), the step below the bfloat16 the
-deployment states, put in the program's place and judged as the program's
-answers are, and given its own verdict by the rule the program's run is
-given (``verdict.py``): it has to come out not correct. The last line is a
-JSON summary: each seed's readings, the largest program reading (the lower
-end of a limit) and the smallest control reading (the upper end). The
-benchmark's own runs never run the control.
+sampled queries, the reference put in the program's place one precision
+below what the deployment states at both of its steps: the embedder's
+control vectors (its ``control``, the plain reference one precision below
+the embedder's own; the stub's float32 gives bfloat16) as the vectors
+served, and the dense lane in int8 (both sides rounded to ``round(127
+x)``, below the index's bfloat16). Its answers and
+vectors are judged as the program's are, and given their own verdict by
+the rule the program's run is given (``verdict.py``): it has to come out
+not correct. The last line is a JSON summary: each seed's readings, the
+largest program reading of each gap (the lower end of its limit) and the
+smallest control reading (the upper end). The benchmark's own runs never
+run the control.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import argparse
 import json
 import sys
 from typing import Any, Dict, List
+
+import numpy as np
 
 from . import run, verdict
 from .reference import judge, search
@@ -68,14 +74,16 @@ def control_answer(cell, seed: int, fused: Dict[str, Any]) -> Dict[str, Any]:
 
 def control_checks(cell, seed: int, sample: Dict[str, Any], device: str
                    ) -> verdict.Checks:
-    """The control's numbers, each with its limit: its answers on the
-    program's sampled queries, in the place of the program's (it serves
-    every request and in the cell's plan modes)."""
-    lists = search.fused(cell.config, seed, sample["texts"], sample["calls"], device,
-                         cell.own["modes"], precision="int8")
+    """The control's numbers, each with its limit: its vectors and answers
+    on the program's sampled queries, in the place of the program's (it
+    serves every request and in the cell's plan modes)."""
+    ref_embs, embs = sample["reference_embs"], sample["control_embs"]
+    lists = search.fused(cell.config, seed, sample["texts"], sample["calls"], embs,
+                         device, cell.own["modes"], precision="int8")
     answers = [control_answer(cell, seed, f) for f in lists]
     gap, wrong = run.judge_all(cell, seed, sample["reference"], answers)
-    return verdict.checks(cell, gap, wrong, 0, 0, len(answers))
+    embed_gap = float(np.abs(embs - ref_embs).max(initial=0.0))
+    return verdict.checks(cell, gap, embed_gap, wrong, 0, 0, len(answers))
 
 
 def main(argv=None) -> int:
@@ -93,13 +101,15 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",")]
     rows: List[Dict[str, Any]] = []
     for seed in seeds:
-        out = run.run_cell(cell, seed, args.seconds, False, args.device, log)
+        out = run.run_cell(cell, seed, args.seconds, False, args.device, log,
+                           control=True)
         reading = {k: c["value"] for k, c in out["checks"].items()}
         reading["seed"] = seed
         reading["correct"] = out["result"]["correct"]
         control = control_checks(cell, seed, out["sample"], args.device)
         verdict.log_checks(control, log, prefix=f"seed {seed} control")
         reading["control_rrf_gap"] = control["rrf_gap"]["value"]
+        reading["control_embed_gap"] = control["embed_gap"]["value"]
         reading["control_wrong_answers"] = control["wrong_answers"]["value"]
         reading["control_correct"] = verdict.correct(control)
         rows.append(reading)
@@ -108,6 +118,8 @@ def main(argv=None) -> int:
         "workload": cell.name, "seconds": args.seconds, "readings": rows,
         "program_rrf_gap_max": max(r["rrf_gap"] for r in rows),
         "control_rrf_gap_min": min(r["control_rrf_gap"] for r in rows),
+        "program_embed_gap_max": max(r["embed_gap"] for r in rows),
+        "control_embed_gap_min": min(r["control_embed_gap"] for r in rows),
         "program_correct": all(r["correct"] for r in rows),
         "control_ever_correct": any(r["control_correct"] for r in rows)}), flush=True)
     return 0

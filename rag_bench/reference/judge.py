@@ -9,15 +9,23 @@ misses a row far down its list) move a served id by a rank or two and give
 gaps of a few 1e-4; a lane scored wrongly moves ids by many ranks or out of
 the list and gives gaps of 1e-2 (1/60 is a whole lane's first place).
 
+``embed_gap``: the widest elementwise |served - reference| over the
+compared queries' vectors, the served one as the engine's embedder gave it
+(float32, widened) and the reference one from the deployment's plain
+reference embedder, both float64.
+
 ``wrong_answers`` counts what is wrong whatever the scores: an id that is
 not an id of the corpus, an id served twice, fewer ids than compared
 positions, a pack whose snippet is not its row's stored text, or whose
-call, speaker or time is not its row's.
+call, speaker or time is not its row's, and a compared query that has no
+served vector.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..traffic import corpus as gen
 from ..traffic import texts
@@ -38,6 +46,24 @@ def _clip(text: str, max_chars: int) -> str:
     if len(text) <= max_chars:
         return text
     return text[:max_chars - 1].rstrip() + "…"
+
+
+def vectors(served: Mapping[str, Any], texts: Sequence[str], reference: np.ndarray
+            ) -> Tuple[np.ndarray, float, int]:
+    """The compared queries' served vectors against the reference's ->
+    (the vectors the reference's dense lane takes, (n, dim) float64: the
+    served one, or the reference's where none was served; embed_gap; the
+    queries with no served vector)."""
+    out = np.array(reference, dtype=np.float64)
+    gap, missing = 0.0, 0
+    for i, text in enumerate(texts):
+        vector = served.get(text)
+        if vector is None:
+            missing += 1
+            continue
+        out[i] = np.asarray(vector, dtype=np.float32)     # as the engine takes it
+        gap = max(gap, float(np.abs(out[i] - reference[i]).max()))
+    return out, gap, missing
 
 
 def _gaps(ref: List[Tuple[Any, float]], served: List[Any], depth: int,

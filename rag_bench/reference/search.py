@@ -12,16 +12,24 @@ in the order lexical, tech, dense: a row scores the sum of 1/(60 + rank)
 over the lanes that hold it.
 
 Search over every row, in float64, corpus block by block from the seed
-(``traffic/corpus.py``): nothing of the program is read. The dense lane
+(``traffic/corpus.py``): nothing of the program is read but the query
+vectors it served. The dense lane takes each query's vector as the
+program's embedder served it (recorded in the window, ``serve.EmbedLog``),
+which the run judges on its own against the deployment's plain reference
+embedder (``embedders/``, ``embed_gap``): a float32 or bfloat16 encoder
+differs from float64 by far more than neighbouring dense scores over
+millions of rows, so a reference embedding of its own would swap their
+ranks. The lexical and tech lanes come from the text. The dense lane
 compares the query and the rows in the embedding type the deployment
 states, bfloat16, on both sides. A corpus searched in the ``ann`` plan mode
 takes its dense and lexical lanes from candidates, as that mode is
 defined: the best row of each group of 8 (group g of 1,024-row block b is
 rows ``b*1024 + w*128 + g``; the lowest row wins a tie), then the best k
 candidates (the lowest candidate, b*128 + g, first among ties); the
-``exact`` mode searches every row. The control (``precision="int8"``)
-scores the dense lane with both sides rounded to int8 (``round(127 x)``),
-the step below the bfloat16 that the deployment states.
+``exact`` mode searches every row. The control (``precision="int8"``,
+``readings.py``) scores the dense lane with both sides rounded to int8
+(``round(127 x)``), the step below the bfloat16 that the deployment
+states.
 """
 
 from __future__ import annotations
@@ -180,11 +188,12 @@ def rrf(lane_rows: Dict[str, List[int]]) -> List[Tuple[int, float]]:
 
 
 def query_inputs(config: Dict[str, Any], seed: int, texts: Sequence[str],
-                 calls: Sequence[Optional[int]]) -> List[Dict[str, Any]]:
-    """The reference's view of each query: its embedding, its lexical
-    vector under each corpus's document frequencies, its tech hashes."""
-    dim, lex_dim = int(config["embedding_dim"]), int(config["lexical_dim"])
-    embs = features.embed(texts, dim)
+                 calls: Sequence[Optional[int]], embs: np.ndarray
+                 ) -> List[Dict[str, Any]]:
+    """The reference's view of each query: its embedding (``embs``, (n,
+    dim) float64: the vectors served), its lexical vector under each
+    corpus's document frequencies, its tech hashes."""
+    lex_dim = int(config["lexical_dim"])
     stats = {c: (gen.doc_freq(config, c, seed), gen.rows(config, c))
              for c in gen.CORPORA}
     return [{"emb": embs[i],
@@ -195,12 +204,13 @@ def query_inputs(config: Dict[str, Any], seed: int, texts: Sequence[str],
 
 
 def fused(config: Dict[str, Any], seed: int, texts: Sequence[str],
-          calls: Sequence[Optional[int]], device, modes: Sequence[str],
-          precision: str = "bf16", block_queries: int = 256
+          calls: Sequence[Optional[int]], embs: np.ndarray, device,
+          modes: Sequence[str], precision: str = "bf16", block_queries: int = 256
           ) -> List[Dict[str, List[Tuple[int, float]]]]:
     """Each query's RRF list per corpus -> [{corpus: [(row, score)]}];
-    ``modes`` are the plan modes of the chunks and the artifacts."""
-    inputs = query_inputs(config, seed, texts, calls)
+    ``embs`` are the queries' vectors, ``modes`` the plan modes of the
+    chunks and the artifacts."""
+    inputs = query_inputs(config, seed, texts, calls, embs)
     out: List[Dict[str, List[Tuple[int, float]]]] = [{} for _ in inputs]
     for q0 in range(0, len(inputs), block_queries):
         part = inputs[q0:q0 + block_queries]

@@ -2,13 +2,23 @@
 --seconds <s> --trace <0|1>`` from the checkout's root.
 
 The run makes the cell's corpus on the card from the seed, starts the
-port's HTTP server in this process (``serve.py``), drives it from a client
-process of its own pinned to the last core (``client.py``: a closed loop
-of the cell's callers, a warm-up, then ``--seconds`` of window), then frees
-the program's state and holds a seeded sample of the window's answers to
-the plain reference (``reference/``). With ``--trace 1`` it profiles a
-steady part of the window and reports the per-layer metrics (one reader
-each in ``metrics/``) in place of the end-to-end ones.
+port's HTTP server in this process (``serve.py``) with the settings of the
+deployment and of its query embedder (``reference/embedders/<name>.py``),
+drives it from a client process of its own pinned to the last core
+(``client.py``: a closed loop of the cell's callers, a warm-up, then
+``--seconds`` of window), recording each query's vector as the program's
+embedder served it. Then it frees the program's state and draws a seeded
+sample of the window's answers; the embedder's plain reference embeds the
+sample's texts while the run's work directory still holds the embedder's
+files, and ``embed_gap`` holds the served vectors to those. The plain
+reference search (``reference/``) takes its dense lane from the served
+vectors and its other lanes from the text, and ``rrf_gap`` holds the
+answers to it. The end-to-end metrics are ``setup_s`` and, on a card,
+``card_us_per_query``: the card's time for the device programs enqueued in
+the window (CUDA events around each, ``serve.CardClock``) over the queries
+they served. With ``--trace 1`` it profiles a steady part of the window
+and reports the per-layer metrics (one reader each in ``metrics/``, the
+window's rate ``client.qps`` among them) in place of the end-to-end ones.
 
 Standard error carries the run's account, ending with one line per number
 compared and its limit; the last line of standard output is the result:
@@ -20,7 +30,6 @@ fewer than the cell needs; exit 3: JAX or the JAX package was loaded.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -29,6 +38,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
 
 
 def _process_age_s() -> float:
@@ -44,7 +55,7 @@ PROCESS_START = time.monotonic() - _process_age_s()
 
 from . import verdict  # noqa: E402
 from .stats import percentile  # noqa: E402
-from .spec import ROOT, Cell, load_cell  # noqa: E402
+from .spec import ROOT, Cell, load_cell, load_file  # noqa: E402
 
 BANNED = ("jax", "jaxlib", "flax", "cadence_rag_tpu")
 SLICE_S = 5.0
@@ -88,12 +99,8 @@ def cpu_split():
 
 def reader(root: Path, name: str) -> Callable:
     """The per-layer metric ``name``'s reader, ``metrics/<name>.py``."""
-    path = Path(root) / "rag_bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "rag_bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return load_file(Path(root) / "rag_bench" / "metrics" / f"{name}.py",
+                     "rag_bench_metric_" + name).read
 
 
 def _client(cell: Cell, seed: int, seconds: float, port: int, workdir: Path,
@@ -112,15 +119,17 @@ def _client(cell: Cell, seed: int, seconds: float, port: int, workdir: Path,
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
-             log: Callable[[str], None], before_window: Optional[Callable] = None
-             ) -> Dict[str, Any]:
+             log: Callable[[str], None], before_window: Optional[Callable] = None,
+             control: bool = False) -> Dict[str, Any]:
     """Set up, serve a window, judge. -> {"result": the last line's object
-    without ``checks``, "checks": {name: {value, limit}}, "sample": ...}"""
+    without ``checks``, "checks": {name: {value, limit}}, "sample": ...};
+    with ``control`` the sample also holds the embedder's control vectors
+    (``readings.py``)."""
     import torch
 
     from . import serve
     from . import trace as tracing
-    from .reference import search
+    from .reference import judge, search
     from .traffic.queries import Queries, rng_for
 
     split: Dict[str, float] = {}
@@ -185,19 +194,37 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             served.ring = None
             sizes = [n for ts, n in served.sizes.records if t0 <= ts <= client["closed"]]
             dispatches = served.dispatches.calls
+            card = (served.card.per_query_us(t0, client["closed"])
+                    if served.card is not None else None)
+            embeds = served.embeds.vectors
         finally:
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.communicate()
             served.close()
         traced = prof.read(workdir) if prof is not None else None
+        end = t0 + seconds
+        records = [r for r in client["records"] if t0 <= r[1] <= end]
+        # the sample, and its reference embedding while the embedder's
+        # files are still in the workdir
+        finished = {int(r[0]) for r in records if r[3] == 200}
+        have = sorted(int(i) for i in client["answers"] if int(i) in finished)
+        order = rng_for(seed, 51).permutation(len(have))
+        chosen = [have[j] for j in order[:int(cell.own["sample"])]]
+        queries = Queries(cell.traffic, cell.config, seed)
+        texts = [queries[i][0] for i in chosen]
+        t = time.monotonic()
+        ref_embs = (served.embedder.embed(cell.config, seed, workdir, texts, device)
+                    if chosen else np.zeros((0, int(cell.config["embedding_dim"]))))
+        embed_s = time.monotonic() - t
+        if control:
+            control_embs = served.embedder.control(cell.config, seed, workdir, texts,
+                                                   device)
     if traced is not None:
         log(f"trace: {traced['window_s']:.3f} s from {traced['lo_us'] / 1e6 - t0:.3f} s "
             f"into the window (the profiler took {late:.3f} s to start), "
             f"{len(traced['kernels'])} kernels, busy {traced['busy_s']:.3f} s")
 
-    end = t0 + seconds
-    records = [r for r in client["records"] if t0 <= r[1] <= end]
     attempted = len(records)
     failed = sum(1 for r in records if r[3] != 200)
     answered = sum(1 for r in records if r[3] == 200 and r[2] <= end)
@@ -213,6 +240,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     log(f"window: {attempted} requests sent, {answered} answered in {seconds} s "
         f"({answered / seconds:.1f}/s), {failed} failed; answered by {SLICE_S:g} s "
         f"slice {slices}")
+    if card is not None:
+        log(f"card: {card[0]:.3f} us a query over {card[1]} device programs "
+            f"({card[2]} queries) enqueued in the window")
     if latency:
         log(f"latency (ms, client clock, every request sent in the window): p50 "
             f"{percentile(latency, 50):.3f}, p95 {percentile(latency, 95):.3f}")
@@ -233,25 +263,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     want_modes = tuple(cell.own["modes"])
     mode_faults = sum(1 for d in dispatches if t0 <= d["t"] <= client["closed"]
                       and (d["chunk_mode"], d["artifact_mode"]) != want_modes)
-    finished = {int(r[0]) for r in records if r[3] == 200}
-    have = sorted(int(i) for i in client["answers"] if int(i) in finished)
-    order = rng_for(seed, 51).permutation(len(have))
-    chosen = [have[j] for j in order[:int(cell.own["sample"])]]
-    queries = Queries(cell.traffic, cell.config, seed)
-    texts = [queries[i][0] for i in chosen]
     calls = [queries[i][1] for i in chosen]
     answers = [client["answers"][str(i)] for i in chosen]
+    # the dense lane from the vectors served, themselves judged apart
+    embs, embed_gap, unserved = judge.vectors(embeds, texts, ref_embs)
     t = time.monotonic()
-    ref = (search.fused(cell.config, seed, texts, calls, device, cell.own["modes"])
-           if chosen else [])
+    ref = (search.fused(cell.config, seed, texts, calls, embs, device,
+                        cell.own["modes"]) if chosen else [])
     ref_s = time.monotonic() - t
     gaps, wrong = judge_each(cell, seed, ref, answers)
     gap = max(gaps, default=0.0)
-    log(f"reference: {ref_s:.3f} s over {len(chosen)} sampled answers; dispatched "
-        f"modes {sorted(modes)}")
+    log(f"reference: {embed_s:.3f} s embedding ({served.embedder.__name__}), "
+        f"{ref_s:.3f} s searching, over {len(chosen)} sampled answers; "
+        f"{unserved} without a served vector; dispatched modes {sorted(modes)}")
     widest = sorted(zip(gaps, chosen), reverse=True)[:5]
     log("widest rrf gaps (gap, query): " + ", ".join(f"({g!r}, {q})" for g, q in widest))
-    judged = verdict.checks(cell, gap, wrong, failed, mode_faults, len(chosen))
+    judged = verdict.checks(cell, gap, embed_gap, wrong + unserved, failed, mode_faults,
+                            len(chosen))
     correct = verdict.correct(judged)
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -259,11 +287,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     metrics = {}
     breakdown = None
     if not trace:
-        values = {"qps": answered / seconds, "setup_s": setup_s}
+        values = {"setup_s": setup_s,
+                  # none on the CPU, which has no card clock
+                  "card_us_per_query": card[0] if card is not None else None}
         for m in cell.end_to_end():
-            metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            if values[m["name"]] is not None:
+                metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
         ctx = {"spans": window_spans, "config": cell.config, "latency_ms": latency,
+               "qps": answered / seconds,
                "batch_sizes": sizes, "trace": traced,
                "dispatches": [d for d in dispatches
                               if traced and served_window(traced, d["t"])]}
@@ -280,9 +312,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
               "metrics": metrics, "device": device_info}
     if breakdown is not None:
         result["breakdown"] = breakdown
-    return {"result": result, "checks": judged,
-            "sample": {"texts": texts, "calls": calls, "answers": answers,
-                       "reference": ref}}
+    sample = {"texts": texts, "calls": calls, "answers": answers, "reference": ref,
+              "reference_embs": ref_embs}
+    if control:
+        sample["control_embs"] = control_embs
+    return {"result": result, "checks": judged, "sample": sample}
 
 
 def _busy_threads(before, after) -> List[tuple]:

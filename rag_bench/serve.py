@@ -2,17 +2,22 @@
 
 ``Served`` starts the port on ``device`` the way a deployment does
 (``serve/api.startup``, then the aiohttp app of ``serve/http.make_app``
-on a localhost port, served from a thread), then loads the cell's data
-(``load.py``) and warms the query embedder's per-feature cache with the
-mix's vocabulary. Around the program, and without changing it, it
-records:
+on a localhost port, served from a thread), with the settings of the
+cell's deployment and of its query embedder (``reference/embedders/``),
+then loads the cell's data (``load.py``) and embeds the embedder's warm-up
+texts. Around the program, and without changing it, it records:
 
 - the engine's ``retrieve.<stage>`` spans and events from the program's
   event ring (``utils/events.py``), drained every half second so that the
   ring's 8,192 entries never wrap;
 - the batcher's ``retrieve.batched size=N`` log records;
 - each device dispatch's modes and query shapes (a wrapper around the
-  index's ``query_both_packed_async``).
+  index's ``query_both_packed_async``);
+- each query's vector as the engine's embedder served it (a wrapper
+  around the engine's ``embed_texts``);
+- on a card, the card's own time for each dispatch's device program
+  (CUDA events on its stream around the index's
+  ``dual_corpus_retrieve_packed``).
 """
 
 from __future__ import annotations
@@ -26,11 +31,11 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import load
 from .spec import Cell
-from .traffic import queries as traffic_gen
 
 RING_DRAIN_S = 0.5
 
@@ -97,6 +102,73 @@ class DispatchLog:
         index.query_both_packed_async = recording
 
 
+class EmbedLog:
+    """Each text's vector as the engine's embedder served it, by the text.
+    The engine calls ``embed_texts`` once a batch and, when that call fails,
+    once a query; a query of the mix is unique, so its text is its key."""
+
+    def __init__(self):
+        from cadence_rag_tpu_torch.engine import retrieve
+
+        self.vectors: Dict[str, np.ndarray] = {}
+        self._engine = retrieve
+        inner = self._inner = retrieve.embed_texts
+
+        def recording(texts):
+            out = inner(texts)
+            # texts and rows paired as the engine pairs them
+            self.vectors.update(zip(texts, out.vectors))
+            return out
+
+        retrieve.embed_texts = recording
+
+    def remove(self) -> None:
+        self._engine.embed_texts = self._inner
+
+
+class CardClock:
+    """A pair of CUDA timing events around each call of the index's device
+    program (``ops/pack.dual_corpus_retrieve_packed``, as ``core/index``
+    calls it), recorded on the stream that the program is enqueued on, with
+    the call's host time and batch. The events time the program alone: the
+    packed batch's upload is enqueued before the first and the readback
+    after the second."""
+
+    def __init__(self):
+        from cadence_rag_tpu_torch.core import index
+
+        self.calls: List[tuple] = []
+        self._module = index
+        inner = self._inner = index.dual_corpus_retrieve_packed
+
+        def timed(*args, **statics):
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = inner(*args, **statics)
+            end.record(stream)
+            self.calls.append((time.monotonic(), int(statics["batch"]), start, end))
+            return out
+
+        index.dual_corpus_retrieve_packed = timed
+
+    def remove(self) -> None:
+        self._module.dual_corpus_retrieve_packed = self._inner
+
+    def per_query_us(self, lo: float, hi: float) -> Optional[tuple]:
+        """-> (card microseconds a query, programs, queries) over the
+        programs enqueued between the host times ``lo`` and ``hi``, or None
+        when there were none."""
+        window = [c for c in self.calls if lo <= c[0] <= hi]
+        queries = sum(c[1] for c in window)
+        if not queries:
+            return None
+        torch.cuda.synchronize()
+        card_ms = sum(start.elapsed_time(end) for _, _, start, end in window)
+        return 1e3 * card_ms / queries, len(window), queries
+
+
 class Served:
     """The port serving one cell's data on ``device``; ``close`` stops the
     server and frees the program's state."""
@@ -107,8 +179,10 @@ class Served:
 
         self.cell, self.seed = cell, seed
         self.settings = settings
+        self.embedder = cell.embedder()
         self._saved = {}
         overrides = dict(cell.config["settings"])
+        overrides.update(self.embedder.prepare(cell.config, seed, workdir, device))
         overrides.update(store_path=str(workdir / "store.db"),
                          ingest_root_dir=str(workdir / "ingest"),
                          store_sync_interval_s=0.0, log_level="WARNING",
@@ -118,6 +192,8 @@ class Served:
             setattr(settings, key, type(self._saved[key])(value))
         self._stop_server = None
         self.ring: Optional[Ring] = None
+        self.embeds: Optional[EmbedLog] = None
+        self.card: Optional[CardClock] = None
         self.sizes = BatchSizes()
         self._log = logging.getLogger("cadence_rag_tpu_torch.serve.batcher")
         try:
@@ -162,9 +238,14 @@ class Served:
         if not featurize.native_available():
             raise RuntimeError("the port's native featurizer (native/lexhash.cpp) "
                                "did not build or load")
-        embed_texts(traffic_gen.warm_texts(self.cell.traffic, cfg))
+        warm = self.embedder.warm(cfg, self.cell.traffic)
+        if warm:
+            embed_texts(warm)
         t = self._lap(split, "embedder cache", t)
         self.dispatches = DispatchLog(self.index)
+        self.embeds = EmbedLog()
+        if self.device.type == "cuda":
+            self.card = CardClock()
         self._log.addHandler(self.sizes)
         self._log.setLevel(logging.INFO)
         self._log.propagate = False
@@ -185,6 +266,10 @@ class Served:
         if getattr(self, "index", None) is not None:
             # the dispatch wrapper and the index refer to each other
             self.index.__dict__.pop("query_both_packed_async", None)
+        if self.embeds is not None:
+            self.embeds.remove()
+        if self.card is not None:
+            self.card.remove()
         self._log.removeHandler(self.sizes)
         self._log.propagate = True
         reset_syncer()

@@ -2,16 +2,21 @@
 
 ``Cell`` joins one entry of ``BENCHMARK.json``'s ``workloads`` with its
 deployment (``configs/<config>.json``), its traffic mix
-(``traffic/<traffic>.json``) and its own settings
-(``workloads/<cell>.json``). ``root`` is the directory that holds
-``BENCHMARK.json``; the data files live under ``root/rag_bench``.
+(``traffic/<traffic>.json``), its own settings
+(``workloads/<cell>.json``) and its deployment's query embedder
+(``reference/embedders/<name>.py``, named by the configuration's
+``query_embedder``, ``stub`` when it names none). ``root`` is the
+directory that holds ``BENCHMARK.json``; the data files live under
+``root/rag_bench``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Dict, List
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,6 +44,22 @@ class Cell:
 
     def _listed(self, metric: Dict[str, Any]) -> bool:
         return "workloads" not in metric or self.name in metric["workloads"]
+
+    def embedder(self) -> ModuleType:
+        """The deployment's query embedder: ``prepare``, ``warm`` and the
+        plain reference ``embed`` (``reference/embedders/stub.py``)."""
+        name = self.config.get("query_embedder", "stub")
+        return load_file(self.root / "rag_bench" / "reference" / "embedders"
+                         / f"{name}.py", "rag_bench_embedder_" + name)
+
+
+def load_file(path: Path, name: str) -> ModuleType:
+    """The module in the file ``path``, under the module name ``name``."""
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _read(path: Path) -> Dict[str, Any]:

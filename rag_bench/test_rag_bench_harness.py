@@ -1,16 +1,20 @@
 """The harness end to end on the CPU at a tiny size: a sound run is correct,
-a run whose timed path is broken underneath is not, a cell, a deployment
-and a per-layer metric added by files alone run, and the command refuses
-to run without a card or without the program."""
+a run whose timed path is broken underneath is not (its answers, or the
+vectors its embedder served), a cell, a deployment, a query embedder and
+a per-layer metric added by files alone run, and the command refuses to
+run without a card or without the program."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
+import torch
 
 from rag_bench import run
 from rag_bench.spec import ROOT, load_cell
@@ -28,16 +32,18 @@ def test_a_sound_run_is_correct(tiny_root, name):
     out = _run(tiny_root, name)
     assert out["result"]["correct"], out["checks"]
     assert out["result"]["attempted"] > 0 and out["result"]["failed"] == 0
-    assert set(out["result"]["metrics"]) == {"qps", "setup_s"}
+    # the CPU has no card clock: card_us_per_query stays out
+    assert set(out["result"]["metrics"]) == {"setup_s"}
     assert list(out["result"]) == ["correct", "attempted", "failed", "metrics", "device"]
+    assert out["checks"]["embed_gap"]["value"] <= out["checks"]["embed_gap"]["limit"]
     assert out["checks"]["answers_compared"]["value"] >= 16
 
 
 def test_a_traced_run_reads_the_per_layer_metrics_and_the_added_one(tiny_root):
     out = _run(tiny_root, "tiny.ids", trace=True, seconds=4)
     metrics = out["result"]["metrics"]
-    assert {"p50_ms", "p95_ms", "batcher.batch_size", "engine.host_ms", "planner.ms",
-            "index.collect_ms", "dummy.batches"} <= set(metrics)
+    assert {"client.qps", "p50_ms", "p95_ms", "batcher.batch_size", "engine.host_ms",
+            "planner.ms", "index.collect_ms", "dummy.batches"} <= set(metrics)
     assert 0 < metrics["p50_ms"]["value"] <= metrics["p95_ms"]["value"]
     # the CPU has no device trace: those readers find nothing and stay out
     assert not {"k1_roofline", "k3_roofline", "device.idle_share"} & set(metrics)
@@ -81,6 +87,72 @@ def _drop_half_the_batch(monkeypatch):
     monkeypatch.setattr(retrieve, "finish_evidence_batch", halved)
 
 
+def test_an_embedder_added_by_files_alone_runs_and_is_correct(tiny_root):
+    """``tiny_alias``'s embedder is a new file: its ``prepare`` makes a file
+    from the seed and names it in a setting the program holds while it
+    serves; its ``embed`` and ``control`` read the file back after the
+    program's state is freed, and its control is not correct."""
+    from rag_bench import readings, verdict
+
+    seen = {}
+
+    def look(served):
+        seen["path"] = served.settings.qwen3_params_path
+        seen["embedder"] = served.embedder.__name__
+
+    cell = load_cell("tiny_alias.ids", tiny_root)
+    out = run.run_cell(cell, SEED, 3, False, "cpu", lambda msg: None, look, control=True)
+    assert out["result"]["correct"], out["checks"]
+    assert seen["path"].endswith("alias_weights.json")
+    assert seen["embedder"] == "rag_bench_embedder_alias"
+    assert 0 < out["checks"]["embed_gap"]["value"] <= out["checks"]["embed_gap"]["limit"]
+    control = readings.control_checks(cell, SEED, out["sample"], "cpu")
+    assert control["embed_gap"]["value"] > control["embed_gap"]["limit"]
+    assert not verdict.correct(control)
+
+
+def _round_served_vectors(monkeypatch):
+    """The stub provider's output rounded to bf16 where it is produced."""
+    from cadence_rag_tpu_torch.embed import stub
+
+    inner = stub.HashEmbeddingProvider.embed
+
+    def rounded(self, texts):
+        out = inner(self, texts)
+        vectors = torch.from_numpy(out.vectors).to(torch.bfloat16).float().numpy()
+        return dataclasses.replace(out, vectors=vectors)
+
+    monkeypatch.setattr(stub.HashEmbeddingProvider, "embed", rounded)
+
+
+def test_vectors_altered_where_served_read_over_embed_gap(tiny_root, monkeypatch):
+    """The dense lane follows the vectors served, so only ``embed_gap``
+    sees them rounded."""
+    out = _run(tiny_root, "tiny.ids",
+               before_window=lambda served: _round_served_vectors(monkeypatch))
+    checks = out["checks"]
+    assert checks["embed_gap"]["value"] > checks["embed_gap"]["limit"]
+    assert checks["rrf_gap"]["value"] <= checks["rrf_gap"]["limit"]
+    assert not out["result"]["correct"]
+
+
+def test_an_answer_without_a_served_vector_is_wrong(tiny_root):
+    """A recorder that keeps nothing: every compared answer lacks its
+    vector."""
+    class Forgetful(dict):
+        def update(self, pairs):
+            pass
+
+    def forget(served):
+        served.embeds.vectors = Forgetful()
+
+    out = _run(tiny_root, "tiny.ids", before_window=forget)
+    checks = out["checks"]
+    assert checks["wrong_answers"]["value"] == checks["answers_compared"]["value"] > 0
+    assert checks["embed_gap"]["value"] == 0.0
+    assert not out["result"]["correct"]
+
+
 def test_a_scoped_run_shows_the_programs_lexical_lane_fault(tiny_root):
     """Packs scoped to one call: K1 keeps one row of each 8-row group, a
     call's rows are contiguous, so the lexical lane under the filter drops
@@ -119,15 +191,38 @@ def test_a_checkout_of_the_benchmark_alone_exits_nonzero(tmp_path):
 
 
 @pytest.mark.cuda
+def test_the_card_clock_times_each_program_over_its_queries(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cadence_rag_tpu_torch.core import index
+
+    from rag_bench.serve import CardClock
+
+    a = torch.randn(4096, 4096, device="cuda")
+    monkeypatch.setattr(index, "dual_corpus_retrieve_packed", lambda x, **kw: x @ x)
+    clock = CardClock()
+    lo = time.monotonic()
+    for batch in (3, 5):
+        index.dual_corpus_retrieve_packed(a, batch=batch)
+    us, programs, queries = clock.per_query_us(lo, time.monotonic())
+    clock.remove()
+    assert (programs, queries) == (2, 8) and us > 0
+    assert clock.per_query_us(time.monotonic(), time.monotonic() + 1) is None
+    assert len(clock.calls) == 2 and index.dual_corpus_retrieve_packed(a).shape == a.shape
+
+
+@pytest.mark.cuda
 def test_each_cell_runs_correct_on_the_card():
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # 15 s: a window that marks at least a cell's 128 compared answers on
+    # a slow host (5 s marked 115 at 575 requests a second)
     for cell in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]:
         proc = subprocess.run(
             [sys.executable, "-m", "rag_bench.run", "--workload", cell["name"],
-             "--seed", str(SEED), "--seconds", "5", "--trace", "0"],
+             "--seed", str(SEED), "--seconds", "15", "--trace", "0"],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
         assert proc.returncode == 0, proc.stderr[-3000:]
         assert json.loads(proc.stdout.splitlines()[-1])["correct"], proc.stderr[-3000:]

@@ -15,7 +15,7 @@ import torch
 from rag_bench.reference import features, judge, search
 from rag_bench.spec import ROOT, load_cell
 from rag_bench.traffic import corpus as gen
-from rag_bench.traffic.queries import make_queries
+from rag_bench.traffic.queries import make_queries, warm_texts
 
 SEED = 4_000_000_123
 
@@ -91,7 +91,8 @@ def test_lanes_match_brute_force(tiny_root, mode):
     queries = make_queries(cell.traffic, config, SEED, 6)
     texts = [t for t, _ in queries]
     calls = [None, None, None] + [c for _, c in queries[3:]]
-    inputs = search.query_inputs(config, SEED, texts, calls)
+    inputs = search.query_inputs(config, SEED, texts, calls,
+                                 features.embed(texts, int(config["embedding_dim"])))
     for corpus in gen.CORPORA:
         got = search.lanes(config, corpus, SEED, inputs, "cpu", mode)
         for q, lanes in zip(inputs, got):
@@ -119,9 +120,38 @@ def test_features_are_the_programs(tiny_root):
                        HashEmbeddingProvider().embed(texts).vectors, atol=1e-6)
 
 
+def test_the_stub_embedder_is_the_hash_embedding(tmp_path):
+    cell = load_cell("msmarco-8m.ids", ROOT)
+    assert "query_embedder" not in cell.config
+    stub = cell.embedder()
+    texts = [t for t, _ in make_queries(cell.traffic, cell.config, SEED, 40)]
+    assert np.array_equal(stub.embed(cell.config, SEED, tmp_path, texts, "cpu"),
+                          features.embed(texts, 1024))
+    assert stub.warm(cell.config, cell.traffic) == warm_texts(cell.traffic, cell.config)
+    assert stub.prepare(cell.config, SEED, tmp_path, "cpu") == {}
+    # the control: the same, rounded to bf16, one step below the float32 served
+    want = torch.from_numpy(features.embed(texts, 1024)).to(torch.bfloat16).double()
+    assert np.array_equal(stub.control(cell.config, SEED, tmp_path, texts, "cpu"),
+                          want.numpy())
+
+
+def test_served_vectors_are_judged_and_a_missing_one_counted():
+    ref = features.embed(["alpha beta", "gamma delta", "epsilon"], 1024)
+    served = {"alpha beta": ref[0].astype(np.float32),
+              "epsilon": (ref[2] + 1e-3).astype(np.float32)}
+    embs, gap, missing = judge.vectors(served, ["alpha beta", "gamma delta", "epsilon"],
+                                       ref)
+    assert missing == 1
+    # the served vectors in the dense lane, the reference's where none was
+    assert np.array_equal(embs[0], ref[0].astype(np.float32))
+    assert np.array_equal(embs[1], ref[1])
+    assert gap == pytest.approx(1e-3, rel=1e-3)
+
+
 def test_the_reference_loads_nothing_of_the_program():
     code = ("import sys; import rag_bench.reference.search, rag_bench.reference.judge, "
             "rag_bench.traffic.texts, rag_bench.readings as r; "
+            "from rag_bench.spec import load_cell; load_cell('msmarco-8m.ids').embedder(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('cadence_rag_tpu_torch', 'cadence_rag_tpu', 'jax', 'jaxlib', 'flax')]; "
             "print(bad)")
@@ -142,13 +172,17 @@ def test_the_control_fails_where_the_reference_passes(tiny_root, name, real):
     cell = load_cell(name, tiny_root)
     queries = make_queries(cell.traffic, cell.config, SEED, 128)
     texts, calls = [t for t, _ in queries], [c for _, c in queries]
-    ref = search.fused(cell.config, SEED, texts, calls, "cpu", cell.own["modes"])
+    embs = features.embed(texts, int(cell.config["embedding_dim"]))
+    ref = search.fused(cell.config, SEED, texts, calls, embs, "cpu", cell.own["modes"])
     itself = [readings.control_answer(cell, SEED, f) for f in ref]
     assert run.judge_all(cell, SEED, ref, itself) == (0.0, 0)
-    sample = {"texts": texts, "calls": calls, "reference": ref}
+    sample = {"texts": texts, "calls": calls, "reference": ref, "reference_embs": embs,
+              "control_embs": cell.embedder().control(cell.config, SEED, None, texts,
+                                                      "cpu")}
     cell.own["limits"] = json.loads(
         (ROOT / "rag_bench" / "workloads" / f"{real}.json").read_text())["limits"]
     control = readings.control_checks(cell, SEED, sample, "cpu")
     assert control["rrf_gap"]["value"] > control["rrf_gap"]["limit"]
+    assert control["embed_gap"]["value"] > control["embed_gap"]["limit"]
     assert control["wrong_answers"]["value"] == 0       # only the ranking moves
     assert not verdict.correct(control)

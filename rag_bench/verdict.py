@@ -12,11 +12,13 @@ from typing import Any, Callable, Dict
 Checks = Dict[str, Dict[str, Any]]
 
 
-def checks(cell, rrf_gap: float, wrong_answers: int, window_failures: int,
-           plan_modes: int, answers_compared: int) -> Checks:
+def checks(cell, rrf_gap: float, embed_gap: float, wrong_answers: int,
+           window_failures: int, plan_modes: int, answers_compared: int) -> Checks:
     """{name: {"value", "limit"[, "at_least"]}} of one run of ``cell``."""
+    limits = cell.own["limits"]
     return {
-        "rrf_gap": {"value": rrf_gap, "limit": float(cell.own["limits"]["rrf_gap"])},
+        "rrf_gap": {"value": rrf_gap, "limit": float(limits["rrf_gap"])},
+        "embed_gap": {"value": embed_gap, "limit": float(limits["embed_gap"])},
         "wrong_answers": {"value": wrong_answers, "limit": 0},
         "window_failures": {"value": window_failures, "limit": 0},
         "plan_modes": {"value": plan_modes, "limit": 0},
