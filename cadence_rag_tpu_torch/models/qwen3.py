@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +41,7 @@ from ..device import DeviceLike, models_device, resolve_device
 from ..logging_utils import get_logger
 from ..ops.hashing import fnv1a64
 from ..parallel import tensor as tp
+from ..utils import events
 from . import prng
 from .embedder import bmm_f32, load_flat, mm_f32, use_plain
 
@@ -313,16 +315,22 @@ def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
 def load_params(path: str, device: DeviceLike
                 ) -> Tuple[Qwen3Encoder, Qwen3Config]:
     """Restore a checkpoint: an npz with the ``_param_specs`` layout, bf16
-    tensors as uint16 bits named in ``__bf16__``, plus an ``__cfg__`` row.
-    A real checkpoint keeps real token id i at ``tok_emb`` row i+1 and row
-    0 zeros (id 0 is the pad), matching ``models/tokenizer.BpeTokenizer``'s
-    +1 shift."""
+    tensors as uint16 bits named in ``__bf16__``, plus an ``__cfg__`` row of
+    the nine integer fields and, where written, a ``__cfg_f__`` row of
+    ``rope_theta`` and ``rms_eps`` (a file without it takes their
+    defaults). A real checkpoint keeps real token id i at ``tok_emb`` row
+    i+1 and row 0 zeros (id 0 is the pad), matching
+    ``models/tokenizer.BpeTokenizer``'s +1 shift."""
     with np.load(path, allow_pickle=False) as data:
         v = data["__cfg__"]
+        floats = {}
+        if "__cfg_f__" in data.files:
+            f = data["__cfg_f__"]
+            floats = dict(rope_theta=float(f[0]), rms_eps=float(f[1]))
         cfg = Qwen3Config(
             vocab_buckets=int(v[0]), d_model=int(v[1]), n_layers=int(v[2]),
             n_heads=int(v[3]), n_kv_heads=int(v[4]), head_dim=int(v[5]),
-            d_ff=int(v[6]), max_len=int(v[7]), embed_dim=int(v[8]),
+            d_ff=int(v[6]), max_len=int(v[7]), embed_dim=int(v[8]), **floats,
         )
         bf16 = set(str(n) for n in data.get("__bf16__", np.array([])))
         model = Qwen3Encoder(cfg, device)
@@ -352,6 +360,13 @@ def save_params(path: str, model: Qwen3Encoder) -> None:
          cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.max_len, cfg.embed_dim],
         dtype=np.int64,
     )
+    # the two float fields ride in a key of their own, written where they
+    # differ from the defaults, so a default config's file is the JAX
+    # package's, key for key
+    if (cfg.rope_theta, cfg.rms_eps) != (Qwen3Config.rope_theta,
+                                         Qwen3Config.rms_eps):
+        flat["__cfg_f__"] = np.array([cfg.rope_theta, cfg.rms_eps],
+                                     dtype=np.float64)
     np.savez(path, **flat)
 
 
@@ -635,10 +650,15 @@ class Qwen3EmbeddingProvider:
         self.model_id = (
             f"qwen3-shaped-{self.cfg.d_model}d{self.cfg.n_layers}L{suffix}"
         )
+        self.settings_key = _settings_key()
 
     @classmethod
     def shared(cls) -> "Qwen3EmbeddingProvider":
-        if cls._instance is None or cls._instance.device != models_device():
+        """The process's provider, made anew when the models' device or the
+        settings it was made from (preset, checkpoint, tokenizer) change."""
+        if (cls._instance is None or cls._instance.device != models_device()
+                or cls._instance.settings_key != _settings_key()):
+            cls._instance = None        # the old weights go before the new load
             cls._instance = cls()
         return cls._instance
 
@@ -660,8 +680,51 @@ class Qwen3EmbeddingProvider:
         return batch_tokenize(texts, self.cfg, seq_len=seq)
 
     def embed(self, texts: Sequence[str]):
+        """``encode``'s vectors, rounded to bfloat16 once (the comment at
+        the rounding says why). While the event ring is on, each call
+        records one ``embed.encode``: ``batch``, ``seq`` (the bucket),
+        ``tokens`` (real positions), ``positions`` (batch x seq), ``pairs``
+        (the causal (query, key) pairs of the real positions, sum of
+        t(t+1)/2), ``tokenize_s``, ``host_s`` (the whole call) and on CUDA
+        ``device_s``: timing events around the forward on its stream, read
+        after the output's copy to the host, which waits for them anyway."""
         from ..embed.provider import EmbeddingResult
 
-        tokens = torch.from_numpy(self.tokenize(texts))
-        vectors = self.model(tokens).cpu().numpy()
+        trace = events.enabled()
+        if trace:
+            t0 = time.monotonic()
+        ids = self.tokenize(texts)
+        if trace:
+            tokenize_s = time.monotonic() - t0
+            start = end = None
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+        out = self.model(torch.from_numpy(ids))
+        if trace and end is not None:
+            end.record(stream)
+        # the vectors leave in the model's bfloat16: the index scores a
+        # query in bfloat16 and its packed upload carries it as float16,
+        # which holds a bfloat16 value of |x| >= 2^-17 exactly, so the card
+        # scores this value and not a second rounding of a float16 one
+        vectors = out.to(torch.bfloat16).float().cpu().numpy()
+        if trace:
+            lengths = (ids != 0).sum(axis=1).astype(np.int64)
+            fields = dict(batch=int(ids.shape[0]), seq=int(ids.shape[1]),
+                          tokens=int(lengths.sum()), positions=int(ids.size),
+                          pairs=int((lengths * (lengths + 1) // 2).sum()),
+                          tokenize_s=round(tokenize_s, 6),
+                          host_s=round(time.monotonic() - t0, 6))
+            if start is not None:
+                fields["device_s"] = round(start.elapsed_time(end) / 1e3, 6)
+            events.record("embed.encode", **fields)
         return EmbeddingResult(vectors=vectors, model=self.model_id)
+
+
+def _settings_key() -> tuple:
+    from ..config import settings
+
+    return (settings.qwen3_preset, settings.qwen3_params_path,
+            settings.qwen3_tokenizer_path)

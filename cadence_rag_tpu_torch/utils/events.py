@@ -4,9 +4,9 @@ Counterpart of ``cadence_rag_tpu/utils/events.py``: the index records what
 its slow operations (growth, inserts) did and how long they took, and the
 serving path what each request, batch and dispatch spent where
 (``http.request``, ``batcher.batch``, the engine's ``retrieve.<stage>``
-spans, ``index.dispatch``), so that a harness can drain the ring beside
-its latency samples. Costs one bool check when disabled (the default);
-never used for control flow.
+spans, ``index.dispatch``, the Qwen3 provider's ``embed.encode``), so that
+a harness can drain the ring beside its latency samples. Costs one bool
+check when disabled (the default); never used for control flow.
 
 Times are ``time.monotonic()`` seconds. An event's ``t`` is when it was
 recorded, a span's end, so ``t - s`` is its start; ``s`` is a span's wall

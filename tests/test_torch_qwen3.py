@@ -220,7 +220,8 @@ def test_npz_files_load_in_both_packages(tmp_path):
 
 def test_provider_buckets_and_bpe(port_store, monkeypatch, tmp_path):
     """The provider pads each batch to ``min(pow2(longest, lo=16),
-    max_len)`` and does not pad the batch; its vectors are ``encode``'s."""
+    max_len)`` and does not pad the batch; its vectors are ``encode``'s,
+    rounded to bfloat16."""
     monkeypatch.setattr(port_store, "embeddings_dim", TINY.embed_dim)
     provider = q3.Qwen3EmbeddingProvider(TINY)
     assert provider.tokenize(["a b"]).shape == (1, 16)
@@ -230,5 +231,5 @@ def test_provider_buckets_and_bpe(port_store, monkeypatch, tmp_path):
     got = provider.embed(texts)
     assert got.vectors.shape == (3, TINY.embed_dim)
     want = q3.encode(provider.model, q3.batch_tokenize(texts, TINY, seq_len=16))
-    np.testing.assert_array_equal(got.vectors, want.numpy())
+    np.testing.assert_array_equal(got.vectors, want.to(torch.bfloat16).float().numpy())
     assert provider.model_id == "qwen3-shaped-64d2L-synthetic"

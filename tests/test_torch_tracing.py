@@ -14,9 +14,13 @@ CPU.
   the ring is on.
 - Each per-layer metric that reads these events gives its value on a
   hand-built window, and nothing on a program that records none of them.
+- A call of the Qwen3 provider with the ring on records one
+  ``embed.encode`` whose sizes are the tokenized batch's; the encoder's
+  three metrics read such events.
 """
 
 import asyncio
+import json
 import gc
 import logging
 import sys
@@ -325,3 +329,67 @@ def test_the_new_metric_readers(name, want):
     if name.startswith("device."):
         # a trace with no kernel: the CPU's
         assert read(dict(ctx, trace=dict(ctx["trace"], kernels=[]))) is None
+
+
+# -- the query encoder's event and its metrics ------------------------------------
+def test_a_qwen3_provider_call_records_one_embed_encode(port_store, monkeypatch):  # noqa: F811
+    import numpy as np
+
+    from cadence_rag_tpu_torch.models import prng
+    from cadence_rag_tpu_torch.models import qwen3 as q3
+
+    tiny = q3.PRESETS["tiny"]
+    monkeypatch.setattr(PORT.settings, "embeddings_dim", tiny.embed_dim)
+    provider = q3.Qwen3EmbeddingProvider(tiny)
+    provider.model = q3.init_params(tiny, prng.PRNGKey(2), "cpu")
+    texts = ["alpha beta", "gamma", "delta epsilon zeta eta", "the ECONNRESET storm"]
+    events.disable()
+    provider.embed(texts)
+    events.enable()
+    try:
+        assert events.drain() == []
+        provider.embed(texts)
+        (ev,) = [e for e in events.drain() if e["tag"] == "embed.encode"]
+    finally:
+        events.disable()
+    ids = provider.tokenize(texts)
+    lengths = np.array([len(t.split()) for t in texts])
+    assert (ev["batch"], ev["seq"]) == ids.shape == (4, 16)
+    assert ev["tokens"] == int((ids != 0).sum()) == lengths.sum() == 10
+    assert ev["positions"] == 4 * 16
+    assert ev["pairs"] == int((lengths * (lengths + 1) // 2).sum()) == 3 + 1 + 10 + 6
+    assert 0 <= ev["tokenize_s"] <= ev["host_s"]
+    assert "device_s" not in ev          # the CPU has no card clock
+
+
+def _encoder_window():
+    """Two encoder batches: 2 x 16 positions holding 12 tokens and 30
+    pairs in 4 ms of card time, 1 x 16 holding 5 and 15 in 6 ms."""
+    spans = [{"t": 100.0, "tag": "embed.encode", "batch": 2, "seq": 16, "tokens": 12,
+              "positions": 32, "pairs": 30, "tokenize_s": 0.0001, "host_s": 0.005,
+              "device_s": 0.004},
+             {"t": 101.0, "tag": "embed.encode", "batch": 1, "seq": 16, "tokens": 5,
+              "positions": 16, "pairs": 15, "tokenize_s": 0.0001, "host_s": 0.007,
+              "device_s": 0.006}]
+    config = json.loads((ROOT / "rag_bench" / "configs" / "cadence-1m-qwen3.json")
+                        .read_text())
+    return dict(_window(), spans=_window()["spans"] + spans, config=config)
+
+
+@pytest.mark.parametrize("name, want", [
+    ("encoder.device_ms", 5.0),
+    ("encoder.mfu", 100.0 * (17 * 7_266_631_680 + 36 * 4 * 32 * 128 * 45)
+     / (0.010 * 989e12)),
+    ("encoder.pad_share", 100.0 * (1 - 17 / 48)),
+])
+def test_the_encoder_metric_readers(name, want):
+    read = run.reader(ROOT, name)
+    ctx = _encoder_window()
+    assert read(ctx) == pytest.approx(want)
+    # the program before the event, and a window with no encoder batch
+    assert read(_window()) is None
+    assert read(dict(ctx, spans=[])) is None
+    if name != "encoder.pad_share":
+        # the CPU's events: no card clock
+        cpu = [{k: v for k, v in ev.items() if k != "device_s"} for ev in ctx["spans"]]
+        assert read(dict(ctx, spans=cpu)) is None
